@@ -7,6 +7,11 @@ from repro.distributed.sharding import make_rules
 from repro.launch.mesh import make_mesh
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips on a host without one")
+
+
 @pytest.fixture(scope="session")
 def mesh11():
     return make_mesh((1, 1), ("data", "model"))
