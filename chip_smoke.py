@@ -20,7 +20,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      table, ~100 running and ~600 queued, the k=32 DRAS sweep pool) fed
      through the event bus and ``SchedTwin.pump()``; then one more decide
      of that snapshot under ``torch.profiler`` (device busy share, kernels
-     per cycle, K1's device time).
+     per cycle, K1's device time);
+  5. K4 (flash attention) against its plain version at llama3.2-1b's
+     prefill shapes (B=1, Hq=32, Hkv=8, D=64; S 1000 and 2048 bf16
+     causal, 1000 f32, 1000 non-causal), with its time beside the plain
+     version's, ``scaled_dot_product_attention``'s and the bound;
+  6. K3 (WKV6) against its plain version at rwkv6-7b's prefill shapes
+     (B=1, H=64, N=64, S 1000 and 1024, f32), with times and bound;
+  7. llama3.2-1b at full width (random bf16 weights) served through
+     ``ServingEngine``: 8 requests of 128-1024 prompt tokens, 4 slots,
+     max_seq 2048, 16 new tokens each, with the kernels and then with
+     the plain versions (``--backend reference``): first-token logits
+     within ``LOGIT_TOL``, token streams equal or each divergence a near
+     tie; tokens/s, prefill and decode times, K4 launches;
+  8. rwkv6-7b at full width the same way: 4 requests of 128-768
+     tokens, 2 slots, max_seq 1024, 8 new tokens; K3 launches.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -50,6 +64,11 @@ OP_RATE = 67e12              # H100 SXM non-tensor 32-bit rate, ops/s
 K1 = dict(name="policy_eval_pass_batched", route="cuda",
           source="src/repro_torch/csrc/policy_eval.cu",
           replaces="src/repro/kernels/policy_eval.py:65")
+K3 = dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+          replaces="src/repro/kernels/wkv6.py:34")
+K4 = dict(name="flash_attention", route="cuda",
+          source="src/repro_torch/csrc/flash_attention.cu",
+          replaces="src/repro/kernels/flash_attention.py:37")
 
 
 def card_line() -> str:
@@ -185,6 +204,15 @@ def time_ms(torch, fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def bound(nbytes, flops, op_rate):
+    """The least time for the work: bytes over the HBM rate against
+    operations over ``op_rate``; returns (ms, what bounds it)."""
+    bytes_ms = nbytes / MEM_RATE * 1e3
+    ops_ms = flops / op_rate * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def k1_bound_ms(torch, args):
     """Least time for one pass on these inputs: bytes (each input read
     once, each output written once) over the HBM rate against the
@@ -204,10 +232,7 @@ def k1_bound_ms(torch, args):
     has_head = (q_rank & ~started).any(1)
     running = (state == RUNNING).sum(1) + started.sum(1)
     ops = int((2 * running.long() ** 2 * has_head).sum())
-    bytes_ms = nbytes / MEM_RATE * 1e3
-    ops_ms = ops / OP_RATE * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+    return bound(nbytes, ops, OP_RATE)
 
 
 def kernel_vs_plain(torch, engine, snapshot):
@@ -363,29 +388,28 @@ def polaris_cycles(torch, engine, pe):
     return launches
 
 
-def profile_cycle(torch, engine, snapshot):
-    """One more Polaris-scale decide, untraced then under torch.profiler:
-    the device's busy share of the traced cycle (the union of kernel
-    intervals over its wall time), kernels per cycle, K1's share."""
+def traced(torch, fn, tag, what, kernel_key):
+    """``fn()`` (which ends in a device read) untraced, then under
+    torch.profiler: the device's busy share of the traced wall (the
+    union of kernel intervals), the kernel count, the device time of the
+    kernels whose name holds ``kernel_key`` and the top six kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.policies import parse_pool
-    pool = parse_pool(DRAS_POOL).spec.to(engine.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    int(engine.decide(snapshot, pool).policy_index)
+    fn()
     untraced = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        int(engine.decide(snapshot, pool).policy_index)
+        fn()
         torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        print("[profile] the profiler saw no device kernels: busy share "
-              "not measured")
+        print(f"{tag} the profiler saw no device kernels: busy share "
+              f"not measured")
         return
     busy, lo, hi = 0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -394,17 +418,297 @@ def profile_cycle(torch, engine, snapshot):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    k1_us = sum(e.device_time_total for e in prof.key_averages()
-                if "pass_kernel" in e.key)
-    print(f"[profile] Polaris decide: untraced {untraced * 1e3:.1f} ms; "
-          f"traced {traced * 1e3:.1f} ms with {len(spans)} device kernels, "
-          f"device busy {busy / 1e3:.1f} ms "
-          f"({100.0 * busy / (traced * 1e6):.1f}% of the traced wall), "
-          f"K1 {k1_us / 1e3:.1f} ms of it")
+    k_us = sum(e.device_time_total for e in prof.key_averages()
+               if kernel_key in e.key)
+    print(f"{tag} {what}: untraced {untraced * 1e3:.1f} ms; traced "
+          f"{wall * 1e3:.1f} ms with {len(spans)} device kernels, device "
+          f"busy {busy / 1e3:.1f} ms ({100.0 * busy / (wall * 1e6):.1f}% "
+          f"of the traced wall), {kernel_key} {k_us / 1e3:.2f} ms of it")
     top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     for e in [e for e in top if not e.key.startswith("aten::")][:6]:
-        print(f"[profile]   {e.device_time_total / 1e3:8.2f} ms "
+        print(f"{tag}   {e.device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x {e.key[:60]}")
+
+
+def profile_cycle(torch, engine, snapshot):
+    """One more Polaris-scale decide, untraced then under torch.profiler:
+    device busy share, kernels per cycle, K1's share."""
+    from repro_torch.core.policies import parse_pool
+    pool = parse_pool(DRAS_POOL).spec.to(engine.device)
+    traced(torch, lambda: int(engine.decide(snapshot, pool).policy_index),
+           "[profile]", "Polaris decide", "pass_kernel")
+
+
+# ---------------------------------------------------------- phases 5 and 6
+def time_median_ms(torch, fn, n, reps=5):
+    """Median over ``reps`` runs of ``n`` back-to-back calls, ms per call
+    (CUDA events)."""
+    return statistics.median(time_ms(torch, fn, n) for _ in range(reps))
+
+
+def worst_excess(got, want, tol):
+    """max |got - want| and whether it stays within atol = rtol = tol."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return err, ok
+
+
+def sdpa_ms(torch, q, k, v, causal):
+    """One PyTorch call computing K4's function, timed as the library
+    yardstick only (the port never calls it).  Where the installed torch
+    lacks ``enable_gqa``, k/v are repeated outside the timed region."""
+    F = torch.nn.functional
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                       enable_gqa=True)
+        call = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+    except TypeError:
+        group = q.shape[1] // k.shape[1]
+        kr = k.repeat_interleave(group, 1)
+        vr = v.repeat_interleave(group, 1)
+        call = lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                      is_causal=causal)
+    return time_median_ms(torch, call, 20)
+
+
+def check_k4(torch):
+    """K4 against full_attention on the card at llama3.2-1b's prefill
+    shapes (B=1, Hq=32, Hkv=8, D=64), q/k/v as the model hands them over
+    (transposed views of (B, S, H, D) projections)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import full_attention
+    cases = [(1000, torch.bfloat16, True), (2048, torch.bfloat16, True),
+             (1000, torch.float32, True), (1000, torch.bfloat16, False)]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+    for s, dtype, causal in cases:
+        def proj(h):
+            return torch.randn((1, s, h, 64), generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype).transpose(1, 2)
+        q, k, v = proj(32), proj(8), proj(8)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        ref = full_attention(q, k, v, causal=causal, q_block=512)
+        torch.cuda.synchronize()
+        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        err, ok = worst_excess(out, ref, tol)
+        name = (f"S={s} {str(dtype)[6:]} "
+                f"{'causal' if causal else 'non-causal'}")
+        if not ok or out.dtype != dtype or not torch.isfinite(out).all():
+            raise SystemExit(f"[k4] MISMATCH on {name}: max abs err {err} "
+                             f"(atol = rtol = {tol})")
+        ms = time_median_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=causal), 10)
+        plain = time_median_ms(torch, lambda: full_attention(
+            q, k, v, causal=causal, q_block=512), 3, reps=3)
+        lib = sdpa_ms(torch, q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal)
+        flops = 4 * 32 * s * s * 64 / (2 if causal else 1)
+        nbytes = (2 * 32 + 2 * 8) * s * 64 * q.element_size()
+        bnd, by = bound(nbytes, flops,
+                        989e12 if dtype == torch.bfloat16 else OP_RATE)
+        print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = {tol}); "
+              f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+              f"sdpa {lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by})")
+        rows[(s, dtype, causal)] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain, bound_ms=bnd,
+                                        bound_by=by, library_ms=lib)
+    return rows[(1000, torch.bfloat16, True)]
+
+
+def wkv_inputs(torch, s, seed):
+    """r, k, v, w, u at rwkv6-7b's prefill shape (B=1, H=64, N=64), f32;
+    w = exp(-exp(x)) in (0, 1) as the model makes it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (1, s, 64, 64)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=gen,
+                                         device="cuda") - 1.0))
+    u = torch.randn((64, 64), generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def check_k3(torch):
+    """K3 against wkv_scan on the card at rwkv6-7b's prefill shapes."""
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models.blocks_rnn import wkv_scan
+    rows = {}
+    for s in (1000, 1024):
+        r, k, v, w, u = wkv_inputs(torch, s, seed=s)
+        y, st = wk.wkv6(r, k, v, w, u)
+        zero = torch.zeros((1, 64, 64, 64), device="cuda")
+        st_ref, y_ref = wkv_scan(zero, r, k, v, w, u)
+        torch.cuda.synchronize()
+        err_y, ok_y = worst_excess(y, y_ref, 2e-4)
+        err_s, ok_s = worst_excess(st, st_ref, 2e-4)
+        if not (ok_y and ok_s):
+            raise SystemExit(f"[k3] MISMATCH at S={s}: y {err_y}, state "
+                             f"{err_s} (atol = rtol = 2e-4)")
+        ms = time_median_ms(torch, lambda: wk.wkv6(r, k, v, w, u), 10)
+        plain = time_median_ms(torch, lambda: wkv_scan(zero, r, k, v, w, u),
+                               1, reps=3)
+        nbytes = 5 * s * 64 * 64 * 4 + 64 * 64 * 4 + 64 * 64 * 64 * 4
+        bnd, by = bound(nbytes, 4 * 64 * 64 * s * 64, OP_RATE)
+        print(f"[k3] S={s} f32: max abs err y {err_y:.3g}, state "
+              f"{err_s:.3g} (atol = rtol = 2e-4); kernel {ms * 1e3:.1f} us, "
+              f"plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by})")
+        rows[s] = dict(max_abs_err=max(err_y, err_s), ms=ms, plain_ms=plain,
+                       bound_ms=bnd, bound_by=by, library_ms=None)
+    return rows[1000]
+
+
+# ---------------------------------------------------------- phases 7 and 8
+#: The device kernel's name (as the profiler lists it) per wrapper module.
+DEVICE_KERNEL = {"repro_torch.kernels.flash_attention": "flash_bf16_kernel",
+                 "repro_torch.kernels.wkv6": "wkv_kernel"}
+
+#: Largest |logit difference| allowed between the kernels' and the plain
+#: versions' first-token logits at full width in bf16, and the top-2 gap
+#: below which a greedy pick may legitimately flip between the two.
+LOGIT_TOL = 0.125
+
+
+def serve_requests(cfg, n, lo, hi, max_new, seed):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(req_id=r, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32),
+        max_new_tokens=max_new) for r in range(n)]
+
+
+def run_engine(torch, cfg, model, reqs, slots, max_seq, backend):
+    """Serve ``reqs`` through ``ServingEngine``; returns (wall s, prefill
+    ms per request, decode ms per step).  Prefill and decode are timed
+    on the host clock around calls that end in a device read."""
+    from repro_torch.serve import ServingEngine
+    eng = ServingEngine(cfg, model, batch_slots=slots, max_seq=max_seq,
+                        device="cuda", backend=backend)
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, out):
+        def call(*args):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return res
+        return call
+
+    eng._prefill = timed(eng._prefill, prefill_ms)
+    eng._decode = timed(eng._decode, decode_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, statistics.mean(prefill_ms),
+            statistics.median(decode_ms))
+
+
+def serve_phase(torch, arch, kernel, n_req, slots, max_seq, lo, hi,
+                max_new):
+    """Serve ``arch`` at full width (random bf16 weights from seed 0)
+    with the kernels, then the same requests with the plain versions;
+    first-token logits within LOGIT_TOL, token streams equal or each
+    divergence a near tie.  Returns the kernel's launches in the
+    kernels' run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    tag = f"[serve {arch}]"
+    t0 = time.perf_counter()
+    model = api.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{tag} {sum(p.numel() for p in model.parameters()):,} params "
+          f"(bf16) initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for backend in ("cuda", "reference"):
+        # warm-up (library handles, the kernel's library load), untimed
+        warm = serve_requests(cfg, 1, 16, 16, 2, seed=2)
+        run_engine(torch, cfg, model, warm, slots, max_seq, backend)
+        reqs = serve_requests(cfg, n_req, lo, hi, max_new, seed=1)
+        kernel.LAUNCHES = 0
+        wall, pre, dec = run_engine(torch, cfg, model, reqs, slots, max_seq,
+                                    backend)
+        launches = kernel.LAUNCHES
+        toks = sum(len(r.output) for r in reqs)
+        print(f"{tag} backend={backend}: {n_req} requests (prompts "
+              f"{min(len(r.prompt) for r in reqs)}-"
+              f"{max(len(r.prompt) for r in reqs)} tokens), {slots} slots, "
+              f"max_seq {max_seq}: {toks} tokens in {wall:.2f} s "
+              f"({toks / wall:.1f} tok/s); prefill {pre:.1f} ms per "
+              f"request, decode {dec:.1f} ms per step; "
+              f"{kernel.__name__.split('.')[-1]} launches {launches}")
+        runs[backend] = (reqs, launches)
+    reqs, launches = runs["cuda"]
+    ref_reqs, ref_launches = runs["reference"]
+    if launches == 0 or ref_launches != 0:
+        raise SystemExit(f"{tag} kernel launches: {launches} with the "
+                         f"kernels, {ref_launches} with the plain versions")
+    with torch.inference_mode():
+        worst = 0.0
+        for r in reqs:
+            batch = {"tokens": torch.as_tensor(
+                r.prompt[None].astype("int64"), device="cuda")}
+            got, _ = api.prefill(cfg, model, batch, "cuda")
+            want, _ = api.prefill(cfg, model, batch, "reference")
+            if not torch.isfinite(got).all():
+                raise SystemExit(f"{tag} request {r.req_id}: non-finite "
+                                 f"logits")
+            worst = max(worst, float((got - want).abs().max()))
+    if worst > LOGIT_TOL:
+        raise SystemExit(f"{tag} first-token logits differ by {worst} > "
+                         f"{LOGIT_TOL}")
+    print(f"{tag} first-token logits, kernels vs plain: max abs diff "
+          f"{worst:.4g} (tolerance {LOGIT_TOL})")
+    same = 0
+    for r, ref in zip(reqs, ref_reqs):
+        if (len(r.output) != max_new or r.first_token_t != ref.first_token_t
+                or r.finish_t != ref.finish_t):
+            raise SystemExit(f"{tag} request {r.req_id}: lengths or times "
+                             f"differ")
+        if r.output == ref.output:
+            same += 1
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(r.output, ref.output))
+                 if a != b)
+        gap = ref.margins[t]
+        print(f"{tag} request {r.req_id} diverges at token {t}: kernels "
+              f"{r.output[t]}, plain {ref.output[t]}; plain top-2 gap "
+              f"{gap:.4g}, kernels' {r.margins[t]:.4g}")
+        if gap > LOGIT_TOL:
+            raise SystemExit(f"{tag} divergence is not a near tie")
+    print(f"{tag} token streams identical for {same} of {len(reqs)} "
+          f"requests; first/finish times identical")
+    profile_serve(torch, cfg, model, reqs, slots, max_seq, tag,
+                  DEVICE_KERNEL[kernel.__name__])
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, key):
+    """One prefill of the longest prompt and one decode step of all
+    slots (at that prompt's length), each untraced then traced."""
+    from repro_torch.models import api
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    batch = {"tokens": torch.as_tensor(longest.prompt[None].astype("int64"),
+                                       device="cuda")}
+    caches = api.init_caches(cfg, slots, max_seq, device="cuda")
+    step = {"tokens": torch.zeros((slots, 1), dtype=torch.int64,
+                                  device="cuda"),
+            "index": len(longest.prompt)}
+    with torch.inference_mode():
+        traced(torch, lambda: float(api.prefill(cfg, model, batch)[0].sum()),
+               tag, f"prefill of {len(longest.prompt)} tokens", key)
+        traced(torch, lambda: float(api.decode_step(cfg, model, caches,
+                                                    step)[0].sum()),
+               tag, f"decode step of {slots} slots", key)
 
 
 def main() -> int:
@@ -413,7 +717,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
     from repro_torch.core.engine import DrainEngine
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import policy_eval as pe
+    from repro_torch.kernels import wkv6 as wk
 
     t_start = time.perf_counter()
     print(f"[card] {card_line()}")
@@ -426,10 +732,18 @@ def main() -> int:
     check_cosim(pe)
     launches = polaris_cycles(torch, engine, pe)
     profile_cycle(torch, engine, snapshot)
+    k4 = check_k4(torch)
+    k3 = check_k3(torch)
+    k4_launches = serve_phase(torch, "llama3.2-1b", fa, n_req=8, slots=4,
+                              max_seq=2048, lo=128, hi=1024, max_new=16)
+    k3_launches = serve_phase(torch, "rwkv6-7b", wk, n_req=4, slots=2,
+                              max_seq=1024, lo=128, hi=768, max_new=8)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card_line())
-    print(json.dumps({"kernels": [dict(K1, launches=launches, **k1,
-                                       library_ms=None)]}))
+    print(json.dumps({"kernels": [
+        dict(K1, launches=launches, **k1, library_ms=None),
+        dict(K3, launches=k3_launches, **k3),
+        dict(K4, launches=k4_launches, **k4)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
-"""Carry state and pools between the JAX package and the port as numpy.
+"""Carry state, pools and model weights between the JAX package and the
+port as numpy.
 
-The port has no weights; its inputs are a job table and a policy pool.
-A test makes them once with numpy (or takes a JAX ``SimState`` through
-``np.asarray``) and hands the same arrays to both packages:
+The twin's inputs are a job table and a policy pool.  A test makes them
+once with numpy (or takes a JAX ``SimState`` through ``np.asarray``) and
+hands the same arrays to both packages:
 
     d = {"jobs.submit_t": ..., ..., "jobs.state": ...,
          "free_nodes": ..., "total_nodes": ..., "now": ...}
@@ -10,6 +11,14 @@ A test makes them once with numpy (or takes a JAX ``SimState`` through
 
 numpy arrives as float64/int64; everything is cast to the reference's
 dtypes on entry (times f32, node counts and lifecycle codes i32).
+
+The LM's weights travel as the reference's flat parameter dict,
+``{name: float32 ndarray}`` with its names and stacked shapes
+(``embed``, ``final_norm.scale``, ``seg0.attn.wq`` of shape
+(L, d, H, D)): ``params_from_numpy`` builds the port's ``LM`` from it and
+``params_to_numpy`` is its inverse.  float32 carries bf16 exactly (the
+machine with the card has no numpy bfloat16), so a test hands JAX's bf16
+leaves over as ``np.asarray(x.astype(jnp.float32))``.
 """
 from __future__ import annotations
 
@@ -20,8 +29,10 @@ import torch
 
 from repro_torch.core.policies import (N_THETA, PolicyPool, PolicySpec,
                                        describe_spec)
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import JobTable, SimState
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.lm import LM
 
 JOB_FIELDS = JobTable._fields
 _I32_JOB_FIELDS = ("nodes", "state")
@@ -81,3 +92,42 @@ def pool_from_numpy(family: np.ndarray, theta: np.ndarray,
     spec = PolicySpec(torch.from_numpy(fam).to(dev),
                       torch.from_numpy(th).to(dev))
     return PolicyPool(spec=spec, names=tuple(names))
+
+
+@torch.no_grad()
+def params_from_numpy(cfg: ModelConfig, d: Dict[str, np.ndarray],
+                      device: DeviceLike = "cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> LM:
+    """The port's ``LM`` holding the values of ``d``, the reference's
+    parameter dict (every name of ``api.param_table(cfg)``, float32),
+    cast to ``dtype`` on ``device``."""
+    model = LM(cfg, dtype, resolve_device(device))
+    names = set()
+    for name, shape, tensors in model.table_entries():
+        if name not in d:
+            raise KeyError(f"parameter dict lacks {name!r}")
+        arr = np.array(d[name], dtype=np.float32)
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(shape)}")
+        if len(tensors) == 1 and tensors[0].shape == arr.shape:
+            tensors[0].copy_(torch.from_numpy(arr))
+        else:
+            for j, t in enumerate(tensors):
+                t.copy_(torch.from_numpy(arr[j]))
+        names.add(name)
+    extra = sorted(set(d) - names)
+    if extra:
+        raise KeyError(f"parameter dict has unknown names {extra}")
+    return model
+
+
+@torch.no_grad()
+def params_to_numpy(model: LM) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_numpy``: the reference's flat dict of
+    float32 host arrays, scanned segments stacked on a leading axis."""
+    out = {}
+    for name, shape, tensors in model.table_entries():
+        arr = torch.stack([t.float().cpu() for t in tensors]).numpy()
+        out[name] = arr.reshape(shape)
+    return out

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
+Every source in ``SOURCES`` (one per kernel, under ``repro_torch/csrc/``)
+is compiled by its own ``nvcc`` process, all started together, for
 ``sm_90a`` into a shared library with a plain C interface.  Libraries
 land in ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash
@@ -22,7 +23,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES: Dict[str, Path] = {
-    "policy_eval": _PKG / "csrc" / "policy_eval.cu",
+    "policy_eval": _PKG / "csrc" / "policy_eval.cu",      # K1
+    "wkv6": _PKG / "csrc" / "wkv6.cu",                    # K3
+    "flash_attention": _PKG / "csrc" / "flash_attention.cu",  # K4
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -1,0 +1,106 @@
+"""K4, flash attention, as a hand-written CUDA kernel for Hopper.
+
+Replaces ``repro/kernels/flash_attention.py::_flash_kernel`` (the Pallas
+TPU kernel).  The CUDA source is ``repro_torch/csrc/flash_attention.cu``,
+built with ``nvcc`` at first use and called through ctypes
+(``kernels/build.py``).  Its plain PyTorch version is
+``models.attention.full_attention``.
+
+``flash_attention`` takes tensors on one device:
+
+  * CPU tensors go to the plain version (the tests, ``--device cpu``);
+  * CUDA tensors launch the kernel on the current stream, and every
+    launch adds one to ``LAUNCHES``.  A failed build or launch raises:
+    nothing falls back to the plain version.
+
+The kernel reads q, k and v through their strides (the head dim must be
+contiguous), so the (B, S, H, D) projections of a model go in as
+transposed views without a copy, and it writes the output into a
+(B, Sq, Hq, D) buffer returned as its (B, Hq, Sq, D) view.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models.attention import full_attention
+
+#: Kernel launches since the last reset (``LAUNCHES = 0``).
+LAUNCHES = 0
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                          ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its head dim is contiguous and every row starts on a
+    16-byte boundary, else a contiguous copy."""
+    vec = 16 // t.element_size()
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % vec == 0 for s in t.stride()[:-1]))
+    return t if ok else t.contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq % Hkv == 0; one dtype,
+    float32 or bfloat16.  Causal masks key positions past the query's
+    (both counted from 0).  Returns (B, Hq, Sq, D) in q's dtype."""
+    global LAUNCHES
+    dev = q.device
+    if dev.type == "cpu":
+        return full_attention(q, k, v, causal=causal, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
+                         f"fit k/v {tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; expected one of float32, bfloat16")
+    if k.device != dev or v.device != dev:
+        raise ValueError("flash_attention: q, k, v on different devices")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                      device=dev).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, strides, scale,
+                 int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out

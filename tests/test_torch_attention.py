@@ -1,0 +1,133 @@
+"""The port's attention (``repro_torch.models.attention``) and K4's
+wrapper (``repro_torch.kernels.flash_attention``) against the JAX
+package's.
+
+* ``full_attention`` (K4's plain version) vs JAX ``full_attention``:
+  causal, bidirectional and local; MHA, GQA and MQA; Sq not a multiple
+  of ``q_block``; ``q_offset`` > 0.  float32, atol = rtol = 2e-5 (the
+  two sum in different orders).
+* The K4 wrapper on CPU tensors (its plain version) vs JAX's Pallas
+  ``ops.flash_attention`` in interpret mode, at the shapes of
+  ``tests/test_kernels_flash.py``: float32 atol = rtol = 2e-5; bfloat16
+  3e-2, as JAX's own ``test_flash_bf16_storage``.
+* ``decode_attention`` (with a validity mask) and ``update_cache``
+  (including an index past the end, which both clamp) vs JAX.
+* K4 itself on the card: ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import attention as tattn
+
+TOL = 2e-5
+
+
+def _qkv(b, hq, hkv, sq, sk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32))
+
+
+def _t(*arrays, dtype=torch.float32):
+    return tuple(torch.from_numpy(a).to(dtype) for a in arrays)
+
+
+def _j(*arrays, dtype=jnp.float32):
+    return tuple(jnp.asarray(a).astype(dtype) for a in arrays)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,d,causal,window,q_block,q_offset",
+    [(2, 4, 2, 37, 37, 16, True, 0, 16, 0),      # GQA, ragged last block
+     (1, 8, 1, 40, 40, 32, False, 0, 16, 0),     # MQA, bidirectional
+     (2, 4, 4, 50, 50, 16, True, 8, 16, 0),      # local window
+     (1, 4, 2, 12, 40, 16, True, 0, 8, 28),      # q_offset: a later chunk
+     (1, 2, 1, 10, 30, 16, True, 6, 4, 20),      # local + q_offset
+     (2, 4, 1, 24, 24, 64, True, 0, 512, 0)],    # one block
+    ids=["gqa-causal", "mqa-bidir", "local", "q-offset", "local-offset",
+         "one-block"])
+def test_full_attention_matches_jax(b, hq, hkv, sq, sk, d, causal, window,
+                                    q_block, q_offset):
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=sq + sk)
+    kw = dict(causal=causal, local_window=window, q_block=q_block,
+              q_offset=q_offset)
+    want = jattn.full_attention(*_j(q, k, v), **kw)
+    got = tattn.full_attention(*_t(q, k, v), **kw)
+    assert got.shape == (b, hq, sq, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 1, 1, 128, 32),
+    (2, 4, 4, 128, 64),
+    (2, 4, 2, 256, 32),    # GQA group 2
+    (1, 8, 1, 256, 64),    # MQA
+    (1, 2, 2, 512, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wrapper_matches_pallas_f32(b, hq, hkv, s, d, causal):
+    q, k, v = _qkv(b, hq, hkv, s, s, d, seed=b * s + d)
+    want = ops.flash_attention(*_j(q, k, v), causal=causal, block_q=64,
+                               block_k=64)
+    launches = fa.LAUNCHES
+    got = fa.flash_attention(*_t(q, k, v), causal=causal)
+    assert fa.LAUNCHES == launches          # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_flash_wrapper_matches_pallas_bf16():
+    q, k, v = _qkv(1, 2, 2, 128, 128, 32, seed=2)
+    want = ops.flash_attention(*_j(q, k, v, dtype=jnp.bfloat16),
+                               causal=True, block_q=64, block_k=64)
+    got = fa.flash_attention(*_t(q, k, v, dtype=torch.bfloat16),
+                             causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (4, 1)])
+def test_decode_attention_matches_jax(hq, hkv):
+    b, s, d = 3, 20, 16
+    q, k, v = _qkv(b, hq, hkv, 1, s, d, seed=hq * 10 + hkv)
+    valid = np.arange(s)[None, :] <= np.array([[5], [19], [11]])
+    want = jattn.decode_attention(*_j(q, k, v),
+                                  kv_valid=jnp.asarray(valid))
+    got = tattn.decode_attention(*_t(q, k, v),
+                                 kv_valid=torch.from_numpy(valid))
+    assert got.shape == (b, hq, 1, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    # bf16 cache, f32 query: probabilities rounded to the cache's dtype
+    want = jattn.decode_attention(*_j(q), *_j(k, v, dtype=jnp.bfloat16),
+                                  kv_valid=jnp.asarray(valid))
+    got = tattn.decode_attention(*_t(q), *_t(k, v, dtype=torch.bfloat16),
+                                 kv_valid=torch.from_numpy(valid))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("index", [0, 7, 11, 15])
+def test_update_cache_matches_jax(index):
+    rng = np.random.default_rng(index)
+    kc, vc = (rng.standard_normal((2, 3, 12, 8)).astype(np.float32)
+              for _ in range(2))
+    kn, vn = (rng.standard_normal((2, 3, 1, 8)).astype(np.float32)
+              for _ in range(2))
+    jk, jv = jattn.update_cache(*_j(kc, vc, kn, vn), jnp.int32(index))
+    tk, tv = _t(kc, vc)
+    out = tattn.update_cache(tk, tv, *_t(kn, vn), index)
+    assert out[0] is tk and out[1] is tv          # written in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))

@@ -6,7 +6,8 @@
   of ``sys.modules``.
 * On a host without a CUDA device, every entry point asked for
   ``device="cuda"`` (their default) raises instead of running on the
-  CPU, and the kernel wrapper raises for anything but CPU tensors.
+  CPU, the twin's and the serving stack's alike, and every kernel
+  wrapper (K1, K3, K4) raises for anything but CPU or CUDA tensors.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.configs import get_smoke_config
 from repro_torch.cluster.emulator import ClusterEmulator
 from repro_torch.cluster.workload import poisson_trace
 from repro_torch.core import backfill, state, whatif
@@ -28,8 +30,13 @@ from repro_torch.core.engine import DrainEngine
 from repro_torch.core.events import EventBus
 from repro_torch.core.twin import SchedTwin
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import policy_eval as pe
-from repro_torch.launch import twin_loop
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.launch import serve, twin_loop
+from repro_torch.models import api
+from repro_torch.models.lm import LM
+from repro_torch.serve import ServingEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -107,6 +114,49 @@ def test_entry_points_raise_for_cuda_without_a_card():
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_serving_entry_points_raise_for_cuda_without_a_card():
+    _no_card()
+    cfg = get_smoke_config("llama3.2-1b")
+    model = api.init_model(cfg, device="cpu")
+    weights = convert.params_to_numpy(model)
+    calls = {
+        "ServingEngine": lambda: ServingEngine(cfg, model, 2, 16),
+        "serve.main": lambda: serve.main(["--arch", "llama3.2-1b",
+                                          "--smoke"]),
+        "params_from_numpy": lambda: convert.params_from_numpy(cfg,
+                                                               weights),
+        "init_model": lambda: api.init_model(cfg),
+        "init_caches": lambda: api.init_caches(cfg, 2, 16),
+        "LM": lambda: LM(cfg),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("kernel", ["wkv6", "flash_attention"])
+def test_model_kernel_wrappers_refuse_other_devices(kernel):
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build.load(kernel)
+    meta = dict(device="meta")
+    if kernel == "wkv6":
+        args = (torch.empty((1, 4, 2, 16), **meta),) * 4 + (
+            torch.empty((2, 16), **meta),)
+        wrapper, launches = wk.wkv6, wk.LAUNCHES
+    else:
+        args = (torch.empty((1, 4, 8, 32), **meta),
+                torch.empty((1, 2, 8, 32), **meta),
+                torch.empty((1, 2, 8, 32), **meta))
+        wrapper, launches = fa.flash_attention, fa.LAUNCHES
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*args)
+    out = wrapper(*(torch.zeros_like(a, device="cpu") for a in args))
+    assert (wk.LAUNCHES if kernel == "wkv6" else fa.LAUNCHES) == launches
+    assert all(torch.isfinite(t).all() for t in
+               (out if isinstance(out, tuple) else (out,)))
 
 
 def test_kernel_wrapper_refuses_without_a_card():

@@ -1,0 +1,251 @@
+"""The port's LM stack (``repro_torch.models``, ``convert``) against the
+JAX package's, for the two families it serves: ``dense``
+(llama3.2-1b) and ``ssm`` (rwkv6-7b).
+
+* ``param_table``: names, shapes and logical axes equal to JAX's, full
+  size and smoke; ``count_params`` equal at full size (no allocation).
+* ``convert``: ``params_to_numpy(params_from_numpy(d)) == d`` bitwise,
+  in float32 and (for bf16-representable values) in bfloat16.
+* Smoke configs, float32 parameters made by JAX's ``init_params`` and
+  carried across with ``convert``: ``prefill`` logits and caches, then
+  one ``decode_step`` (logits and updated caches), against JAX's
+  ``api.prefill``/``api.decode_step``.  Tolerance: rtol 1e-4 with
+  atol 1e-5 on f32 values (logits, prefill caches, the wkv state: XLA
+  and torch sum in different orders); caches stored in bf16 (decode's
+  KV and token-shift rows) to one bf16 ulp, atol 1e-2 relative to the
+  values' scale (an f32 value within rounding distance of a bf16 tie
+  can round either way).
+* The port's own golden consistency, as ``tests/test_models_smoke.py``
+  checks JAX's: prefill(S tokens) + decode(token S) equals prefill(S+1
+  tokens) at the last position, with bf16 weights from the port's own
+  init (same tolerances as the JAX test: 3e-2 dense, 5e-2 RWKV).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
+from repro.models import api as japi
+from repro.models.common import count_params as jcount
+from repro.models.common import init_params as jinit
+from repro_torch import convert
+from repro_torch.configs import ARCH_ORDER, get_config, get_smoke_config
+from repro_torch.models import api, common, lm
+from repro_torch.serve.engine import _write_slot
+
+ARCHS = ("llama3.2-1b", "rwkv6-7b")
+RTOL, ATOL = 1e-4, 1e-5
+CPU = "cpu"
+
+
+def _cfgs(arch, gqa=False):
+    over = dict(n_kv_heads=2) if gqa else {}
+    return jget_smoke(arch, **over), get_smoke_config(arch, **over)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch, gqa=False):
+    jcfg, _ = _cfgs(arch, gqa)
+    params = jinit(jax.random.PRNGKey(0), japi.param_table(jcfg),
+                   dtype=jnp.float32)
+    return params, {k: np.asarray(v, dtype=np.float32)
+                    for k, v in params.items()}
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _close(got, want, what, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol,
+                               err_msg=what)
+
+
+def _close_bf16(got, want, what):
+    want = _np(want)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(_np(got), want, rtol=2 ** -7,
+                               atol=1e-2 * scale, err_msg=what)
+
+
+# ---------------------------------------------------------------- tables
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_table_matches_jax(arch, smoke):
+    jcfg = jget_smoke(arch) if smoke else jget_config(arch)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    want = japi.param_table(jcfg)
+    got = api.param_table(cfg)
+    assert list(got) == list(want)
+    for name in want:
+        assert tuple(got[name][0]) == tuple(want[name][0]), name
+        assert tuple(got[name][1]) == tuple(want[name][1]), name
+    assert common.count_params(got) == jcount(want)
+    if not smoke:
+        expect = {"llama3.2-1b": 1_235_814_400,
+                  "rwkv6-7b": 7_577_014_272}[arch]
+        assert common.count_params(got) == expect
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_ORDER if get_config(a).family
+                                  not in ("dense", "ssm")])
+def test_unported_family_raises(arch):
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="A11"):
+        api.param_table(cfg)
+    with pytest.raises(NotImplementedError, match="A11"):
+        lm.LM(cfg, torch.float32, CPU)
+
+
+@pytest.mark.parametrize("how", ["init_model", "init_params"])
+def test_init_rules(how):
+    """The reference's init rules, from ``api.init_model`` (per-layer
+    parameters) and from ``common.init_params`` (the flat table)."""
+    cfg = get_smoke_config("rwkv6-7b")
+    table = api.param_table(cfg)
+    if how == "init_model":
+        d, d2 = (convert.params_to_numpy(api.init_model(
+            cfg, seed=3, dtype=torch.float32, device=CPU)) for _ in range(2))
+    else:
+        d, d2 = ({k: v.numpy() for k, v in common.init_params(
+            table, torch.Generator().manual_seed(3), torch.float32).items()}
+            for _ in range(2))
+    assert set(d) == set(table)
+    for name, arr in d.items():
+        np.testing.assert_array_equal(arr, d2[name])     # same seed
+        kind, std = common.init_rule(name, table[name][0])
+        if kind == "ones":
+            assert np.all(arr == 1.0), name
+        elif kind == "zeros":
+            assert np.all(arr == 0.0), name
+        else:
+            assert std == min(0.02, 1 / np.sqrt(table[name][0][-2]))
+            assert 0.5 * std < arr.std() < 1.5 * std, name
+
+
+# ---------------------------------------------------------------- convert
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_convert_round_trip(arch, dtype):
+    jcfg, cfg = _cfgs(arch)
+    params = jinit(jax.random.PRNGKey(1), japi.param_table(jcfg),
+                   dtype=jnp.bfloat16 if dtype == torch.bfloat16
+                   else jnp.float32)
+    d = {k: np.asarray(v.astype(jnp.float32)) for k, v in params.items()}
+    model = convert.params_from_numpy(cfg, d, device=CPU, dtype=dtype)
+    assert model.dtype == dtype
+    back = convert.params_to_numpy(model)
+    assert set(back) == set(d)
+    for name in d:
+        assert back[name].dtype == np.float32
+        np.testing.assert_array_equal(back[name], d[name], err_msg=name)
+    # layer j of a scanned entry is slice j of the stacked array
+    name = "seg0.attn.wq" if arch == "llama3.2-1b" else "seg0.tm.wr"
+    layer = model.segs[0][1].get_parameter(name[len("seg0."):])
+    np.testing.assert_array_equal(layer.float().numpy(), d[name][1])
+    with pytest.raises(KeyError):
+        convert.params_from_numpy(cfg, {**d, "bogus": d["embed"]},
+                                  device=CPU)
+
+
+# ---------------------------------------------------------------- parity
+
+@pytest.mark.parametrize("arch,gqa", [("llama3.2-1b", False),
+                                      ("llama3.2-1b", True),
+                                      ("rwkv6-7b", False)],
+                         ids=["llama", "llama-gqa", "rwkv"])
+def test_prefill_and_decode_match_jax(arch, gqa, mesh11, rules_decode):
+    jcfg, cfg = _cfgs(arch, gqa)
+    jparams, npd = _jax_params(arch, gqa)
+    model = convert.params_from_numpy(cfg, npd, device=CPU,
+                                      dtype=torch.float32)
+    b, s, max_seq = 2, 21, 29               # S not a multiple of q_block
+    toks = _tokens(cfg, b, s + 1, seed=7)
+    with mesh11:
+        jlogits, jcaches = japi.prefill(
+            jcfg, rules_decode, jparams, {"tokens": jnp.asarray(toks[:, :s])})
+    with torch.inference_mode():
+        logits, caches = api.prefill(
+            cfg, model, {"tokens": torch.from_numpy(toks[:, :s]).long()})
+    assert logits.shape == (b, 1, cfg.vocab_size)
+    assert logits.dtype == torch.float32
+    _close(logits, jlogits, "prefill logits")
+    assert set(caches) == set(jcaches)
+    for key in jcaches:
+        for name in jcaches[key]:
+            _close(caches[key][name], jcaches[key][name],
+                   f"prefill cache {key}.{name}")
+
+    # decode one token from caches padded to max_seq (bf16, as served)
+    jfull = japi.init_caches(jcfg, b, max_seq)
+    jfull = jax.tree.map(_blit, jfull, jcaches)
+    full = api.init_caches(cfg, b, max_seq, device=CPU)
+    for key, layer in full.items():
+        for name, big in layer.items():
+            for slot in range(b):
+                _write_slot(big, caches[key][name][slot:slot + 1], slot)
+    step = toks[:, s:]
+    with mesh11:
+        jlogits2, jcaches2 = japi.decode_step(
+            jcfg, rules_decode, jparams, jfull,
+            {"tokens": jnp.asarray(step), "index": jnp.int32(s)})
+    with torch.inference_mode():
+        logits2, caches2 = api.decode_step(
+            cfg, model, full, {"tokens": torch.from_numpy(step).long(),
+                               "index": s})
+    _close(logits2, jlogits2, "decode logits")
+    for key in jcaches2:
+        for name, want in jcaches2[key].items():
+            got = caches2[key][name]
+            assert got.dtype == {jnp.float32: torch.float32,
+                                 jnp.bfloat16: torch.bfloat16}[
+                                     jnp.dtype(want.dtype).type]
+            if got.dtype == torch.float32:
+                _close(got, want, f"decode cache {key}.{name}")
+            else:
+                _close_bf16(got, want, f"decode cache {key}.{name}")
+
+
+def _blit(big, small):
+    if big.shape == small.shape:
+        return small
+    pads = [(0, b - s) for b, s in zip(big.shape, small.shape)]
+    return jnp.pad(small, pads).astype(big.dtype)
+
+
+@pytest.mark.parametrize("arch,tol", [("llama3.2-1b", 3e-2),
+                                      ("rwkv6-7b", 5e-2)])
+def test_decode_matches_full_forward(arch, tol):
+    """prefill(S) + decode(token S) == prefill(S+1) at the last
+    position, on the port alone (bf16 weights from its own init)."""
+    cfg = get_smoke_config(arch)
+    model = api.init_model(cfg, seed=0, device=CPU)
+    b, s = 2, 32
+    toks = torch.from_numpy(_tokens(cfg, b, s + 1, seed=5)).long()
+    with torch.inference_mode():
+        want, _ = api.prefill(cfg, model, {"tokens": toks})
+        _, caches = api.prefill(cfg, model, {"tokens": toks[:, :s]})
+        full = api.init_caches(cfg, b, s + 1, device=CPU)
+        for key, layer in full.items():
+            for name, big in layer.items():
+                small = caches[key][name]
+                big[tuple(slice(0, n) for n in small.shape)] = small
+        got, _ = api.decode_step(cfg, model, full,
+                                 {"tokens": toks[:, s:], "index": s})
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol,
+                               rtol=tol)
