@@ -8,11 +8,12 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases (each prints its own lines; any failure exits non-zero):
 
   1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
-     every kernel from the sources in the checkout, with ptxas's report;
-  2. every kernel against its plain PyTorch version on the card, on the
-     inputs of real-size passes (a Polaris-scale drain, forced end-time
-     collisions, ``limit < J``, the largest J): bitwise, plus its time per
-     launch beside the plain version's and the bound;
+     every kernel from the sources in the checkout (one process per
+     source, all started together), with ptxas's report;
+  2. K1 against its plain PyTorch version on the card, on the inputs of
+     real-size passes (a Polaris-scale drain, forced end-time collisions,
+     ``limit < J``, the largest J): bitwise, plus its time per launch
+     beside the plain version's and the bound;
   3. the paper's §4.1 co-simulation (``--trace paper``: 150 jobs, 32
      nodes, paper pool, ``score``) through ``twin_loop`` on ``cuda`` and
      on ``cpu``: same metric table, policy mix and per-cycle starts;
@@ -21,20 +22,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      through the event bus and ``SchedTwin.pump()``; then one more decide
      of that snapshot under ``torch.profiler`` (device busy share, kernels
      per cycle, K1's device time);
-  5. K4 (flash attention) against its plain version at llama3.2-1b's
+  5. K1' (the pass on one shared snapshot) through ``ops.twin_schedule_pass``
+     on the six Polaris mirrors of phase 4 (k=32, J=1024) and on forced
+     collisions: bitwise against its plain version, time and bound;
+  6. K4 (flash attention) against its plain version at llama3.2-1b's
      prefill shapes (B=1, Hq=32, Hkv=8, D=64; S 1000 and 2048 bf16
-     causal, 1000 f32, 1000 non-causal), with its time beside the plain
-     version's, ``scaled_dot_product_attention``'s and the bound;
-  6. K3 (WKV6) against its plain version at rwkv6-7b's prefill shapes
+     causal, 1000 f32, 1000 non-causal), and at recurrentgemma-2b's local
+     layer (bf16, Hq=10, Hkv=1, D=256, window 2048 at S 2048 and 3072,
+     window 100 at S 1000), with its time beside the plain version's,
+     ``scaled_dot_product_attention``'s and the bound;
+  7. K3 (WKV6) against its plain version at rwkv6-7b's prefill shapes
      (B=1, H=64, N=64, S 1000 and 1024, f32), with times and bound;
-  7. llama3.2-1b at full width (random bf16 weights) served through
+  8. K2 (the RG-LRU scan) against its plain version at recurrentgemma-2b's
+     prefill shape (B=1, W=2560, S 2048 and 3072, f32): bitwise, times
+     and bound;
+  9. llama3.2-1b at full width (random bf16 weights) served through
      ``ServingEngine``: 8 requests of 128-1024 prompt tokens, 4 slots,
      max_seq 2048, 16 new tokens each, with the kernels and then with
      the plain versions (``--backend reference``): first-token logits
      within ``LOGIT_TOL``, token streams equal or each divergence a near
-     tie; tokens/s, prefill and decode times, K4 launches;
-  8. rwkv6-7b at full width the same way: 4 requests of 128-768
-     tokens, 2 slots, max_seq 1024, 8 new tokens; K3 launches.
+     tie; tokens/s, prefill and decode times, K4 launches (16 a prefill);
+ 10. rwkv6-7b at full width the same way: 4 requests of 128-768
+     tokens, 2 slots, max_seq 1024, 8 new tokens; K3 launches;
+ 11. recurrentgemma-2b at full width the same way: 4 requests of
+     256-3072 tokens (one at least past the 2048-token window), 2 slots,
+     max_seq 4096, 8 new tokens; K2 (18 a prefill) and K4 (8 a prefill,
+     windowed, D=256) launches.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -64,6 +77,11 @@ OP_RATE = 67e12              # H100 SXM non-tensor 32-bit rate, ops/s
 K1 = dict(name="policy_eval_pass_batched", route="cuda",
           source="src/repro_torch/csrc/policy_eval.cu",
           replaces="src/repro/kernels/policy_eval.py:65")
+K1S = dict(name="policy_eval_pass", route="cuda",
+           source="src/repro_torch/csrc/policy_eval.cu",
+           replaces="src/repro/kernels/policy_eval.py:176")
+K2 = dict(name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
+          replaces="src/repro/kernels/rglru.py:31")
 K3 = dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
           replaces="src/repro/kernels/wkv6.py:34")
 K4 = dict(name="flash_attention", route="cuda",
@@ -216,23 +234,28 @@ def bound(nbytes, flops, op_rate):
 def k1_bound_ms(torch, args):
     """Least time for one pass on these inputs: bytes (each input read
     once, each output written once) over the HBM rate against the
-    lexicographic count's compare-adds (2 ops per pair, over the running
-    and pass-1-started jobs of each fork that has a head) over the
-    non-tensor rate."""
+    lexicographic count's compare-adds over the non-tensor rate."""
+    k, J = args[0].shape
+    nbytes = k * J * (4 * 5) + k * (4 + 4) + 4 + k * J * 1 + k * 4
+    return bound(nbytes, pass_ops(torch, args), OP_RATE)
+
+
+def pass_ops(torch, args):
+    """The pass's compare-adds on these (k, J) inputs: 2 per pair of the
+    running and pass-1-started jobs of each fork that has a head."""
     from repro_torch.core.state import QUEUED, RUNNING
     order, state, nodes, est, end_t, free0, now, limit = args
-    k, J = order.shape
-    nbytes = k * J * (4 * 5) + k * (4 + 4) + 4 + k * J * 1 + k * 4
+    J = order.shape[1]
     idx = order.long()
     ranks = torch.arange(J, device=order.device)
-    q_rank = torch.gather(state == QUEUED, 1, idx) & (ranks < limit.long())
+    rank_hi = J if limit is None else limit.long()
+    q_rank = torch.gather(state == QUEUED, 1, idx) & (ranks < rank_hi)
     need = torch.cumsum(torch.where(q_rank, torch.gather(nodes, 1, idx), 0),
                         1)
     started = q_rank & (need <= free0[:, None])
     has_head = (q_rank & ~started).any(1)
     running = (state == RUNNING).sum(1) + started.sum(1)
-    ops = int((2 * running.long() ** 2 * has_head).sum())
-    return bound(nbytes, ops, OP_RATE)
+    return int((2 * running.long() ** 2 * has_head).sum())
 
 
 def kernel_vs_plain(torch, engine, snapshot):
@@ -280,16 +303,16 @@ def kernel_vs_plain(torch, engine, snapshot):
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
 
 
-def raw_launch(torch, pe, args):
-    """K1 launched straight through its C entry point on fixed buffers,
-    so that back-to-back launches time the kernel, not the wrapper's
-    checks and allocations."""
+def raw_launch(torch, pe, args, entry="policy_eval_pass_batched"):
+    """K1 (or K1', ``entry="policy_eval_pass"``) launched straight through
+    its C entry point on fixed buffers, so that back-to-back launches
+    time the kernel, not the wrapper's checks and allocations."""
     k, J = args[0].shape
     started = torch.empty((k, J), dtype=torch.bool, device="cuda")
     free = torch.empty((k,), dtype=torch.int32, device="cuda")
-    fn = pe._kernel()
-    ptrs = [a.data_ptr() for a in args] + [started.data_ptr(),
-                                           free.data_ptr()]
+    fn = pe._kernel(entry)
+    ptrs = [None if a is None else a.data_ptr() for a in args] + [
+        started.data_ptr(), free.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
@@ -346,7 +369,7 @@ def polaris_cycles(torch, engine, pe):
     trace, events, n_run = polaris_backlog()
     for ev in events:
         bus.publish(ev)
-    rows = []
+    rows, mirrors = [], []
     pe.LAUNCHES = 0
     for cycle in range(POLARIS_CYCLES):
         if cycle:
@@ -365,6 +388,7 @@ def polaris_cycles(torch, engine, pe):
         n_before = len(twin.telemetry.cycles)
         twin.pump()
         torch.cuda.synchronize()
+        mirrors.append(twin.state)
         rec = twin.telemetry.cycles[-1]
         assert len(twin.telemetry.cycles) == n_before + 1
         jobs = twin.state.jobs
@@ -385,14 +409,100 @@ def polaris_cycles(torch, engine, pe):
           f"J={POLARIS_SLOTS}, k=32: wall mean "
           f"{statistics.mean(rows) * 1e3:.1f} ms, p50 "
           f"{statistics.median(rows) * 1e3:.1f} ms; K1 launches {launches}")
-    return launches
+    return launches, mirrors
 
 
-def traced(torch, fn, tag, what, kernel_key):
+# ---------------------------------------------------------------- phase 5
+def shared_passes(torch, k, J, seed, collide):
+    """K1' inputs at shape (k, J): the first fork's rows of
+    ``synthetic_passes`` shared by all k, each fork with its own
+    queued-first order."""
+    import numpy as np
+    from repro_torch.core.state import QUEUED
+    order, state, nodes, est, end, free0, now, limit = synthetic_passes(
+        torch, k, J, seed, collide)
+    rng = np.random.default_rng(seed + 1000)
+    queued = (state[0] == QUEUED).cpu().numpy()
+    keys = np.where(queued, rng.random((k, J)), np.inf)
+    order = torch.from_numpy(np.argsort(keys, axis=1, kind="stable").astype(
+        np.int32)).cuda()
+    limit = torch.tensor([int(queued.sum())], dtype=torch.int32,
+                         device="cuda")
+    return (order, state[0].contiguous(), nodes[0].contiguous(),
+            est[0].contiguous(), end[0].contiguous(), free0[:1].clone(),
+            now[:1].clone(), limit)
+
+
+def check_k1_shared(torch, snapshot, mirrors):
+    """K1' through its entry point, ``ops.twin_schedule_pass``, on each
+    Polaris mirror of phase 4 under the k=32 DRAS pool (its launches on
+    that path), then on forced collisions; each bitwise against its
+    plain version; then its time on the first mirror's inputs."""
+    from repro_torch.core.backfill import priority_order
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.state import RUNNING
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import policy_eval as pe
+    pool = parse_pool(DRAS_POOL).spec.to("cuda")
+    states = [snapshot.to("cuda")] + [m.to("cuda") for m in mirrors]
+    pe.SHARED_LAUNCHES = 0
+    outs = [ops.twin_schedule_pass(st, pool) for st in states]
+    torch.cuda.synchronize()
+    launches = pe.SHARED_LAUNCHES
+    if launches != len(states):
+        raise SystemExit(f"[k1'] {launches} launches for {len(states)} "
+                         f"snapshots")
+    cases = []
+    for i, st in enumerate(states):
+        jobs = st.jobs
+        args = (priority_order(st, pool), jobs.state, jobs.nodes,
+                jobs.est_runtime,
+                torch.where(jobs.state == RUNNING, jobs.end_t, torch.inf),
+                st.free_nodes.reshape(1), st.now.reshape(1), None)
+        cases.append((f"Polaris mirror {i}", args, outs[i]))
+    for seed in range(4):
+        args = shared_passes(torch, 32, POLARIS_SLOTS, seed, True)
+        cases.append((f"collide k=32 J=1024 seed={seed}", args,
+                      pe.policy_eval_pass(*args)))
+    args = shared_passes(torch, 8, pe.MAX_J, 7, True)
+    cases.append(("collide k=8 J=4096", args, pe.policy_eval_pass(*args)))
+    for name, args, (s_k, f_k) in cases:
+        s_p, f_p = pe.shared_pass_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(s_k, s_p) and torch.equal(f_k, f_p)):
+            raise SystemExit(f"[k1'] MISMATCH on {name}")
+    print(f"[k1'] twin_schedule_pass on {len(states)} Polaris snapshots "
+          f"(k=32, J={POLARIS_SLOTS}; {int(outs[0][0].sum())} starts on "
+          f"the first) and {len(cases) - len(states)} collision inputs: "
+          f"started and free bitwise equal to the plain version "
+          f"(tolerance: none); K1' launches on the path {launches}")
+    first = cases[0][1]
+    launch = raw_launch(torch, pe, first, entry="policy_eval_pass")
+    ms = time_ms(torch, launch, 500)
+    plain_ms = time_ms(torch, lambda: pe.shared_pass_plain(*first), 10)
+    ms2 = time_ms(torch, launch, 500)
+    k, J = first[0].shape
+    nbytes = k * J * 4 + J * 16 + 8 + k * J * 1 + k * 4
+    rows = lambda t: t.reshape(1, J).expand(k, J)            # noqa: E731
+    expanded = (first[0],) + tuple(rows(t) for t in first[1:5]) + (
+        first[5].expand(k), first[6].expand(k), None)
+    bnd, by = bound(nbytes, pass_ops(torch, expanded), OP_RATE)
+    print(f"[k1'] first Polaris snapshot (k={k}, J={J}): kernel "
+          f"{ms * 1e3:.2f} / {ms2 * 1e3:.2f} us per launch, plain "
+          f"{plain_ms:.3f} ms, bound {bnd * 1e3:.3f} us ({by})")
+    return launches, dict(max_abs_err=0.0, ms=min(ms, ms2),
+                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                          library_ms=None)
+
+
+def traced(torch, fn, tag, what, kernel_keys):
     """``fn()`` (which ends in a device read) untraced, then under
     torch.profiler: the device's busy share of the traced wall (the
     union of kernel intervals), the kernel count, the device time of the
-    kernels whose name holds ``kernel_key`` and the top six kernels."""
+    kernels whose name holds each of ``kernel_keys`` and the top six
+    kernels."""
+    if isinstance(kernel_keys, str):
+        kernel_keys = (kernel_keys,)
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -418,12 +528,13 @@ def traced(torch, fn, tag, what, kernel_key):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    k_us = sum(e.device_time_total for e in prof.key_averages()
-               if kernel_key in e.key)
+    shares = ", ".join(
+        f"{key} {sum(e.device_time_total for e in prof.key_averages() if key in e.key) / 1e3:.2f} ms"
+        for key in kernel_keys)
     print(f"{tag} {what}: untraced {untraced * 1e3:.1f} ms; traced "
           f"{wall * 1e3:.1f} ms with {len(spans)} device kernels, device "
           f"busy {busy / 1e3:.1f} ms ({100.0 * busy / (wall * 1e6):.1f}% "
-          f"of the traced wall), {kernel_key} {k_us / 1e3:.2f} ms of it")
+          f"of the traced wall), of it {shares}")
     top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     for e in [e for e in top if not e.key.startswith("aten::")][:6]:
         print(f"{tag}   {e.device_time_total / 1e3:8.2f} ms "
@@ -517,6 +628,92 @@ def check_k4(torch):
     return rows[(1000, torch.bfloat16, True)]
 
 
+def check_k4_local(torch):
+    """K4 against full_attention at recurrentgemma-2b's local layer
+    (B=1, Hq=10, Hkv=1, D=256, bf16, causal): window 2048 at S 2048
+    (where it does not bite, so SDPA computes the same function) and
+    3072, and window 100 at S 1000 (a row's first key tile can lie
+    wholly outside its window).  Times: S 2048 and 3072."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import full_attention
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    rows = {}
+    for s, window in ((2048, 2048), (3072, 2048), (1000, 100)):
+        def proj(h):
+            return torch.randn((1, s, h, 256), generator=gen, device="cuda",
+                               dtype=torch.bfloat16).transpose(1, 2)
+        q, k, v = proj(10), proj(1), proj(1)
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        ref = full_attention(q, k, v, causal=True, local_window=window,
+                             q_block=512)
+        torch.cuda.synchronize()
+        err, ok = worst_excess(out, ref, 3e-2)
+        name = f"D=256 Hq=10 Hkv=1 S={s} window={window} bf16"
+        if not ok or out.dtype != torch.bfloat16 or not torch.isfinite(
+                out).all():
+            raise SystemExit(f"[k4] MISMATCH on {name}: max abs err {err} "
+                             f"(atol = rtol = 3e-2)")
+        if s == 1000:
+            print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = "
+                  f"3e-2)")
+            rows["w100"] = dict(max_abs_err=err)
+            continue
+        ms = time_median_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window), 10)
+        plain = time_median_ms(torch, lambda: full_attention(
+            q, k, v, causal=True, local_window=window, q_block=512), 3,
+            reps=3)
+        lib = (sdpa_ms(torch, q.contiguous(), k.contiguous(),
+                       v.contiguous(), True) if s <= window else None)
+        # (query, key) pairs inside the causal window, as this data needs
+        pairs = (min(s, window) * (min(s, window) + 1) // 2
+                 + max(0, s - window) * window)
+        flops = 4 * 10 * 256 * pairs
+        nbytes = (2 * 10 + 2 * 1) * s * 256 * 2
+        bnd, by = bound(nbytes, flops, 989e12)
+        print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = 3e-2); "
+              f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
+              f"{'n/a (windowed)' if lib is None else f'{lib * 1e3:.1f} us'}"
+              f", bound {bnd * 1e3:.2f} us ({by}, {flops / 1e9:.2f} GFLOP)")
+        rows[s] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                       bound_by=by, library_ms=lib)
+    return rows
+
+
+def check_k2(torch):
+    """K2 against rglru_scan on the card at recurrentgemma-2b's prefill
+    shape (B=1, W=2560), S 2048 and 3072: a = sigmoid, x and h0 normal,
+    f32.  Bitwise: both round the product and the sum apart."""
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.models.blocks_rnn import rglru_scan
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for s in (2048, 3072):
+        shape = (1, s, 2560)
+        a = torch.sigmoid(torch.randn(shape, generator=gen, device="cuda"))
+        x = torch.randn(shape, generator=gen, device="cuda")
+        h0 = torch.zeros((1, 2560), device="cuda")
+        h_all, h_final = rg.rglru(a, x, h0)
+        want_final, want_all = rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        err = max(float((h_all - want_all).abs().max()),
+                  float((h_final - want_final).abs().max()))
+        if not (torch.equal(h_all, want_all)
+                and torch.equal(h_final, want_final)):
+            raise SystemExit(f"[k2] MISMATCH at S={s}: max abs err {err} "
+                             f"(tolerance: none)")
+        ms = time_median_ms(torch, lambda: rg.rglru(a, x, h0), 20)
+        plain = time_median_ms(torch, lambda: rglru_scan(a, x, h0), 1,
+                               reps=3)
+        bnd, by = bound(12 * s * 2560, 2 * s * 2560, OP_RATE)
+        print(f"[k2] B=1 S={s} W=2560 f32: bitwise equal to the plain "
+              f"version (tolerance: none); kernel {ms * 1e3:.1f} us, plain "
+              f"{plain * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by})")
+        rows[s] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                       bound_by=by, library_ms=None)
+    return rows[2048]
+
+
 def wkv_inputs(torch, s, seed):
     """r, k, v, w, u at rwkv6-7b's prefill shape (B=1, H=64, N=64), f32;
     w = exp(-exp(x)) in (0, 1) as the model makes it."""
@@ -562,7 +759,8 @@ def check_k3(torch):
 # ---------------------------------------------------------- phases 7 and 8
 #: The device kernel's name (as the profiler lists it) per wrapper module.
 DEVICE_KERNEL = {"repro_torch.kernels.flash_attention": "flash_bf16_kernel",
-                 "repro_torch.kernels.wkv6": "wkv_kernel"}
+                 "repro_torch.kernels.wkv6": "wkv_kernel",
+                 "repro_torch.kernels.rglru": "rglru_kernel"}
 
 #: Largest |logit difference| allowed between the kernels' and the plain
 #: versions' first-token logits at full width in bf16, and the top-2 gap
@@ -609,13 +807,15 @@ def run_engine(torch, cfg, model, reqs, slots, max_seq, backend):
             statistics.median(decode_ms))
 
 
-def serve_phase(torch, arch, kernel, n_req, slots, max_seq, lo, hi,
-                max_new):
+def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
+                max_new, min_longest=0):
     """Serve ``arch`` at full width (random bf16 weights from seed 0)
     with the kernels, then the same requests with the plain versions;
     first-token logits within LOGIT_TOL, token streams equal or each
-    divergence a near tie.  Returns the kernel's launches in the
-    kernels' run."""
+    divergence a near tie.  ``kernels`` maps each kernel's wrapper module
+    to its launches per prefill; every one must launch exactly that many
+    times a request with the kernels and never with the plain versions.
+    Returns ``{module: launches}`` of the kernels' run."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     cfg = get_config(arch)
@@ -632,24 +832,33 @@ def serve_phase(torch, arch, kernel, n_req, slots, max_seq, lo, hi,
         warm = serve_requests(cfg, 1, 16, 16, 2, seed=2)
         run_engine(torch, cfg, model, warm, slots, max_seq, backend)
         reqs = serve_requests(cfg, n_req, lo, hi, max_new, seed=1)
-        kernel.LAUNCHES = 0
+        longest = max(len(r.prompt) for r in reqs)
+        if longest <= min_longest:
+            raise SystemExit(f"{tag} no prompt longer than {min_longest} "
+                             f"tokens")
+        for kernel in kernels:
+            kernel.LAUNCHES = 0
         wall, pre, dec = run_engine(torch, cfg, model, reqs, slots, max_seq,
                                     backend)
-        launches = kernel.LAUNCHES
+        launches = {kernel: kernel.LAUNCHES for kernel in kernels}
         toks = sum(len(r.output) for r in reqs)
+        counts = ", ".join(f"{k.__name__.split('.')[-1]} launches {n}"
+                           for k, n in launches.items())
         print(f"{tag} backend={backend}: {n_req} requests (prompts "
-              f"{min(len(r.prompt) for r in reqs)}-"
-              f"{max(len(r.prompt) for r in reqs)} tokens), {slots} slots, "
-              f"max_seq {max_seq}: {toks} tokens in {wall:.2f} s "
-              f"({toks / wall:.1f} tok/s); prefill {pre:.1f} ms per "
-              f"request, decode {dec:.1f} ms per step; "
-              f"{kernel.__name__.split('.')[-1]} launches {launches}")
+              f"{min(len(r.prompt) for r in reqs)}-{longest} tokens), "
+              f"{slots} slots, max_seq {max_seq}: {toks} tokens in "
+              f"{wall:.2f} s ({toks / wall:.1f} tok/s); prefill {pre:.1f} ms "
+              f"per request, decode {dec:.1f} ms per step; {counts}")
         runs[backend] = (reqs, launches)
     reqs, launches = runs["cuda"]
     ref_reqs, ref_launches = runs["reference"]
-    if launches == 0 or ref_launches != 0:
-        raise SystemExit(f"{tag} kernel launches: {launches} with the "
-                         f"kernels, {ref_launches} with the plain versions")
+    for kernel, per_prefill in kernels.items():
+        if (launches[kernel] != per_prefill * n_req
+                or ref_launches[kernel] != 0):
+            raise SystemExit(
+                f"{tag} {kernel.__name__} launches: {launches[kernel]} "
+                f"with the kernels (expected {per_prefill} x {n_req} "
+                f"prefills), {ref_launches[kernel]} with the plain versions")
     with torch.inference_mode():
         worst = 0.0
         for r in reqs:
@@ -686,13 +895,13 @@ def serve_phase(torch, arch, kernel, n_req, slots, max_seq, lo, hi,
     print(f"{tag} token streams identical for {same} of {len(reqs)} "
           f"requests; first/finish times identical")
     profile_serve(torch, cfg, model, reqs, slots, max_seq, tag,
-                  DEVICE_KERNEL[kernel.__name__])
+                  tuple(DEVICE_KERNEL[k.__name__] for k in kernels))
     del model
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, key):
+def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, keys):
     """One prefill of the longest prompt and one decode step of all
     slots (at that prompt's length), each untraced then traced."""
     from repro_torch.models import api
@@ -705,10 +914,10 @@ def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, key):
             "index": len(longest.prompt)}
     with torch.inference_mode():
         traced(torch, lambda: float(api.prefill(cfg, model, batch)[0].sum()),
-               tag, f"prefill of {len(longest.prompt)} tokens", key)
+               tag, f"prefill of {len(longest.prompt)} tokens", keys)
         traced(torch, lambda: float(api.decode_step(cfg, model, caches,
                                                     step)[0].sum()),
-               tag, f"decode step of {slots} slots", key)
+               tag, f"decode step of {slots} slots", keys)
 
 
 def main() -> int:
@@ -719,6 +928,7 @@ def main() -> int:
     from repro_torch.core.engine import DrainEngine
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import policy_eval as pe
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import wkv6 as wk
 
     t_start = time.perf_counter()
@@ -730,20 +940,36 @@ def main() -> int:
     snapshot = polaris_snapshot(engine)
     k1 = kernel_vs_plain(torch, engine, snapshot)
     check_cosim(pe)
-    launches = polaris_cycles(torch, engine, pe)
+    launches, mirrors = polaris_cycles(torch, engine, pe)
     profile_cycle(torch, engine, snapshot)
+    k1s_launches, k1s = check_k1_shared(torch, snapshot, mirrors)
     k4 = check_k4(torch)
+    k4_local = check_k4_local(torch)
     k3 = check_k3(torch)
-    k4_launches = serve_phase(torch, "llama3.2-1b", fa, n_req=8, slots=4,
-                              max_seq=2048, lo=128, hi=1024, max_new=16)
-    k3_launches = serve_phase(torch, "rwkv6-7b", wk, n_req=4, slots=2,
-                              max_seq=1024, lo=128, hi=768, max_new=8)
+    k2 = check_k2(torch)
+    llama = serve_phase(torch, "llama3.2-1b", {fa: 16}, n_req=8, slots=4,
+                        max_seq=2048, lo=128, hi=1024, max_new=16)
+    rwkv = serve_phase(torch, "rwkv6-7b", {wk: 32}, n_req=4, slots=2,
+                       max_seq=1024, lo=128, hi=768, max_new=8)
+    rgemma = serve_phase(torch, "recurrentgemma-2b", {rg: 18, fa: 8},
+                         n_req=4, slots=2, max_seq=4096, lo=256, hi=3072,
+                         max_new=8, min_longest=2048)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    k4_err = max([k4["max_abs_err"]]
+                 + [r["max_abs_err"] for r in k4_local.values()])
+    local = {key: k4_local[2048][key] for key in
+             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(card_line())
     print(json.dumps({"kernels": [
         dict(K1, launches=launches, **k1, library_ms=None),
-        dict(K3, launches=k3_launches, **k3),
-        dict(K4, launches=k4_launches, **k4)]}))
+        dict(K1S, launches=k1s_launches, **k1s),
+        dict(K2, launches=rgemma[rg], **k2),
+        dict(K3, launches=rwkv[wk], **k3),
+        dict(K4, launches=llama[fa] + rgemma[fa],
+             **{**k4, "max_abs_err": k4_err},
+             launches_by_path={"llama3.2-1b": llama[fa],
+                               "recurrentgemma-2b": rgemma[fa]},
+             recurrentgemma_local_s2048=local)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

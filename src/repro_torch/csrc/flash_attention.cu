@@ -1,4 +1,5 @@
-// K4: flash attention forward (online softmax), causal or not, with GQA.
+// K4: flash attention forward (online softmax), causal or not, with GQA
+// and an optional sliding window.
 //
 // Replaces repro/kernels/flash_attention.py::_flash_kernel (the Pallas
 // TPU kernel, entry flash_attention).  It computes what that kernel
@@ -13,22 +14,48 @@
 // not padded by the caller.  The plain PyTorch version is
 // repro_torch/models/attention.py::full_attention.
 //
+// The window (the Pallas kernel has none; full_attention's
+// local_window): window = W > 0 masks keys with k_pos <= q_pos - W, and
+// implies causal.  A query tile's key loop starts at the tile holding
+// key q_tile*64 - W + 1, not at 0, and keeps the causal upper bound, so
+// a tile does O(W) work, not O(q_pos).  The first tile a row visits can
+// lie wholly outside that row's window (rows near the bottom of a query
+// tile have later windows than its top row): every score there is
+// -1e30, the row's running max stays -1e30 and p = exp(0) = 1 is summed
+// into l and acc; the next tile holds the row's diagonal, its max is
+// finite, and the rescale by exp(-1e30 - m) = 0 clears what was summed,
+// exactly.
+//
 // What bounds it on an H100.  Causal prefill of llama3.2-1b (B=1, Hq=32,
 // Hkv=8, D=64, S=2048, bf16) moves q, k, v and o once (~21 MB, 6 us at
 // 3.35 TB/s) but does 4*Hq*S^2*D/2 = 17 GFLOP (17 us at the 989 TFLOP/s
-// bf16 tensor rate): operations bound it.  Two paths, one per dtype:
+// bf16 tensor rate): operations bound it, and so they do for
+// recurrentgemma-2b's local layers (Hq=10, Hkv=1, D=256, W=2048: 21.5
+// GFLOP at S=2048).  Two paths, one per dtype:
 //   * bfloat16 (the serving path): tensor cores through
 //     mma.sync.m16n8k16 with f32 accumulation.  One block of 4 warps per
 //     (64-row query tile, batch*head), heaviest causal tiles first; each
-//     warp keeps its 16 rows' Q fragments, the 64 scores of the current
-//     key tile and the output accumulator in registers, and turns the
-//     score fragments straight into the A fragments of P.V.  K (row
-//     major) and V (transposed) are staged in shared memory with rows
-//     padded by 8 elements, so fragment reads hit 32 distinct banks.
+//     warp keeps the 16 rows' scores of the current key tile and the
+//     output accumulator in registers, and turns the score fragments
+//     straight into the A fragments of P.V.  K and V are staged row
+//     major in shared memory with rows padded by 8 elements, so fragment
+//     reads hit 32 distinct banks; V's B fragments come from
+//     ldmatrix.trans, so V needs no transposing store (scalar stores
+//     of a transpose would be 32-way bank-conflicted at D = 256).  For
+//     D <= 128
+//     the warp's Q fragments live in registers and key tiles are 64
+//     wide.  At D = 256 that plan needs 128 (accumulator) + 64 (Q) + 32
+//     (scores) f32 registers a thread before any address: past the 255
+//     limit, so it would spill.  D = 256 therefore keeps the Q tile in
+//     shared memory (a fragment is read per k-step) and halves the key
+//     tile to 32 (16 score registers): ~71 KB of shared memory a block,
+//     with the opt-in above 48 KB.
 //   * float32: CUDA cores (the tensor cores have no f32 product).  4
 //     threads per query row, each owning a contiguous quarter of the head
 //     dim, 16-byte shared-memory reads, a row's 64 scores in registers,
-//     two xor-shuffles to finish each dot product.
+//     two xor-shuffles to finish each dot product.  D <= 128 only: at
+//     D = 256 a thread would hold 64 q, 64 accumulator and 64 score
+//     values.  The serving path is bf16.
 // Neither overlaps loads with compute (no cp.async/TMA pipeline) nor
 // uses wgmma or warp specialisation: those are for a later change.
 
@@ -44,6 +71,16 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr float kNegInf = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The first key tile (of width bk) that query tile q_tile visits: the
+// one holding key q_tile*64 - window + 1, the earliest key its top row
+// sees; 0 without a window.
+__device__ __forceinline__ int first_key_tile(int q_tile, int window,
+                                              int bk) {
+  if (window <= 0) return 0;
+  const int lo = q_tile * kBlockQ - window + 1;
+  return lo > 0 ? lo / bk : 0;
+}
 
 // ---------------------------------------------------------------------
 // float32: CUDA cores.
@@ -86,7 +123,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int group, int sq, int sk, long long qsb, long long qsh,
                  long long qss, long long ksb, long long ksh, long long kss,
                  long long vsb, long long vsh, long long vss, long long osb,
-                 long long osh, long long oss, float scale, int causal) {
+                 long long osh, long long oss, float scale, int causal,
+                 int window) {
   constexpr int kDp = D / kPartsPerRow;      // dims owned by one thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
@@ -127,10 +165,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int hi = ((q_tile + 1) * kBlockQ + kBlockK - 1) / kBlockK;
     n_tiles = hi < k_tiles ? hi : k_tiles;
   }
+  const int kt_lo = first_key_tile(q_tile, window, kBlockK);
   const float* kbase = k + b * ksb + kvh * ksh;
   const float* vbase = v + b * vsb + kvh * vsh;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt_lo; kt < n_tiles; ++kt) {
     const int key0 = kt * kBlockK;
     __syncthreads();                      // the previous tile is consumed
     load_tile_f32<D>(ks, kbase, kss, key0, sk);
@@ -150,7 +189,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dot += __shfl_xor_sync(kFull, dot, 1);
       dot += __shfl_xor_sync(kFull, dot, 2);
       const int k_pos = key0 + j;
-      const bool ok = k_pos < sk && (!causal || k_pos <= q_pos);
+      const bool ok = k_pos < sk && (!causal || k_pos <= q_pos) &&
+                      (window <= 0 || k_pos > q_pos - window);
       s[j] = ok ? dot : kNegInf;
       m_new = fmaxf(m_new, s[j]);
     }
@@ -182,7 +222,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                int batch, int hq, int hkv, int sq, int sk,
-               const long long* st, float scale, int causal,
+               const long long* st, float scale, int causal, int window,
                cudaStream_t stream) {
   const size_t smem = 2 * kBlockK * D * sizeof(float);
   if (smem > 48 * 1024) {
@@ -196,7 +236,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), hq, hq / hkv,
       sq, sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal);
+      st[9], st[10], st[11], scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,6 +250,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;        // 128, 16 rows a warp
 constexpr int kPad = 8;
+
+// The register plan per head dim: D = 256 keeps Q in shared memory and
+// takes 32-key tiles (see the note at the top).
+template <int D>
+struct Bf16Plan {
+  static constexpr bool kQInSmem = D > 128;
+  static constexpr int kBK = D > 128 ? 32 : 64;    // keys per tile
+  static constexpr int kLd = D + kPad;             // K, V, Q tiles: [row][d]
+  static constexpr size_t kSmemBytes =
+      (2 * static_cast<size_t>(kBK) +
+       (kQInSmem ? static_cast<size_t>(kBlockQ) : 0)) *
+      kLd * sizeof(__nv_bfloat16);
+};
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -231,6 +284,18 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Four 8x8 b16 matrices from shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8, and r[m] is this lane's pair of
+// matrix m as a B fragment of mma.m16n8k16 (rows 2t, 2t + 1 of column g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -240,15 +305,19 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                  int sk, long long qsb, long long qsh, long long qss,
                  long long ksb, long long ksh, long long kss, long long vsb,
                  long long vsh, long long vss, long long osb, long long osh,
-                 long long oss, float scale, int causal) {
-  constexpr int kLdK = D + kPad;                 // K tile: [key][d]
-  constexpr int kLdV = kBlockK + kPad;           // V tile: [d][key]
+                 long long oss, float scale, int causal, int window) {
+  using Plan = Bf16Plan<D>;
+  constexpr int kBK = Plan::kBK;
+  constexpr int kLdK = Plan::kLd;
+  constexpr int kLdQ = Plan::kLd;
   constexpr int kDSteps = D / 16;                // k-steps of Q K^T
-  constexpr int kNTiles = kBlockK / 8;           // score n-tiles
+  constexpr int kNTiles = kBK / 8;               // score n-tiles
   constexpr int kDTiles = D / 8;                 // output n-tiles
+  constexpr int kVecPerRow = D / 8;              // 16-byte pieces a row
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vts = ks + kBlockK * kLdK;
+  __nv_bfloat16* vs = ks + kBK * kLdK;
+  __nv_bfloat16* qs = vs + kBK * kLdK;             // used when kQInSmem
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int bh = blockIdx.y;
@@ -261,9 +330,25 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int t = lane % 4;                          // thread in group
   const int row0 = q_tile * kBlockQ + warp * 16 + g;   // and row0 + 8
 
-  // Q fragments (A operand, 16 rows x D), rows past sq are zero.
-  uint32_t qa[kDSteps][4];
-  {
+  // Q fragments (A operand, 16 rows x D), rows past sq are zero: in
+  // registers, or (D = 256) the block's 64 x D tile in shared memory,
+  // made visible by the barrier after the first K/V tile.
+  uint32_t qa[Plan::kQInSmem ? 1 : kDSteps][4];
+  if constexpr (Plan::kQInSmem) {
+    const __nv_bfloat16* qbase = q + b * qsb + h * qsh;
+    for (int idx = threadIdx.x; idx < kBlockQ * kVecPerRow;
+         idx += kMmaThreads) {
+      const int r = idx / kVecPerRow;
+      const int c = (idx % kVecPerRow) * 8;
+      const int pos = q_tile * kBlockQ + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (pos < sq) {
+        val = *reinterpret_cast<const uint4*>(
+            qbase + static_cast<long long>(pos) * qss + c);
+      }
+      *reinterpret_cast<uint4*>(qs + r * kLdQ + c) = val;
+    }
+  } else {
     const __nv_bfloat16* q0 = q + b * qsb + h * qsh + row0 * qss;
     const __nv_bfloat16* q8 = q0 + 8 * qss;
     const bool ok0 = row0 < sq, ok8 = row0 + 8 < sq;
@@ -276,6 +361,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       qa[ksp][3] = ok8 ? ld32(q8 + c + 8) : 0u;
     }
   }
+  const __nv_bfloat16* qrow = qs + (warp * 16 + g) * kLdQ + 2 * t;
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -284,20 +370,20 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = kNegInf, m8 = kNegInf;    // running max of rows g, g + 8
   float l0 = 0.0f, l8 = 0.0f;          // this thread's share of the sums
 
-  const int k_tiles = (sk + kBlockK - 1) / kBlockK;
+  const int k_tiles = (sk + kBK - 1) / kBK;
   int n_tiles = k_tiles;
   if (causal) {
-    const int hi = ((q_tile + 1) * kBlockQ + kBlockK - 1) / kBlockK;
+    const int hi = ((q_tile + 1) * kBlockQ + kBK - 1) / kBK;
     n_tiles = hi < k_tiles ? hi : k_tiles;
   }
+  const int kt_lo = first_key_tile(q_tile, window, kBK);
   const __nv_bfloat16* kbase = k + b * ksb + kvh * ksh;
   const __nv_bfloat16* vbase = v + b * vsb + kvh * vsh;
-  constexpr int kVecPerRow = D / 8;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int key0 = kt * kBlockK;
+  for (int kt = kt_lo; kt < n_tiles; ++kt) {
+    const int key0 = kt * kBK;
     __syncthreads();                      // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBlockK * kVecPerRow;
+    for (int idx = threadIdx.x; idx < kBK * kVecPerRow;
          idx += kMmaThreads) {
       const int r = idx / kVecPerRow;
       const int c = (idx % kVecPerRow) * 8;
@@ -310,23 +396,41 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             vbase + static_cast<long long>(key0 + r) * vss + c);
       }
       *reinterpret_cast<uint4*>(ks + r * kLdK + c) = kv;
-      __nv_bfloat16 vals[8];
-      memcpy(vals, &vv, sizeof(vals));
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vts[(c + i) * kLdV + r] = vals[i];
+      *reinterpret_cast<uint4*>(vs + r * kLdK + c) = vv;
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
+    // S = Q K^T for this warp's 16 rows x kBK keys, each score summed
+    // over the k-steps in order.  Q in shared memory: one fragment read
+    // per k-step, used for every n-tile; Q in registers: n-tile by
+    // n-tile (this order keeps D = 128 free of spills).
     float s[kNTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+    for (int nt = 0; nt < kNTiles; ++nt)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const __nv_bfloat16* krow = ks + (nt * 8 + g) * kLdK + 2 * t;
+    if constexpr (Plan::kQInSmem) {
 #pragma unroll
       for (int ksp = 0; ksp < kDSteps; ++ksp) {
-        mma_bf16(s[nt], qa[ksp], ld32(krow + ksp * 16),
-                 ld32(krow + ksp * 16 + 8));
+        const uint32_t qf[4] = {ld32(qrow + ksp * 16),
+                                ld32(qrow + 8 * kLdQ + ksp * 16),
+                                ld32(qrow + ksp * 16 + 8),
+                                ld32(qrow + 8 * kLdQ + ksp * 16 + 8)};
+#pragma unroll
+        for (int nt = 0; nt < kNTiles; ++nt) {
+          const __nv_bfloat16* krow = ks + (nt * 8 + g) * kLdK + 2 * t;
+          mma_bf16(s[nt], qf, ld32(krow + ksp * 16),
+                   ld32(krow + ksp * 16 + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+        const __nv_bfloat16* krow = ks + (nt * 8 + g) * kLdK + 2 * t;
+#pragma unroll
+        for (int ksp = 0; ksp < kDSteps; ++ksp) {
+          mma_bf16(s[nt], qa[ksp], ld32(krow + ksp * 16),
+                   ld32(krow + ksp * 16 + 8));
+        }
       }
     }
 
@@ -338,7 +442,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + nt * 8 + 2 * t + (e & 1);
         const int row = row0 + (e >> 1) * 8;
-        const bool ok = key < sk && (!causal || key <= row);
+        const bool ok = key < sk && (!causal || key <= row) &&
+                        (window <= 0 || key > row - window);
         s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
       }
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
@@ -373,14 +478,18 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
 
-    // O += P V: V^T rows (d) are the B operand's columns.
+    // O += P V: V's rows (keys) are the B operand's k, its columns (d)
+    // the n; one ldmatrix.trans gives the B fragments of output n-tiles
+    // dt and dt + 1 for one 16-key k-step.
+    const __nv_bfloat16* vrow = vs + (lane & 15) * kLdK + (lane >> 4) * 8;
 #pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      const __nv_bfloat16* vrow = vts + (dt * 8 + g) * kLdV + 2 * t;
+    for (int dt = 0; dt < kDTiles; dt += 2) {
 #pragma unroll
-      for (int ksp = 0; ksp < kBlockK / 16; ++ksp) {
-        mma_bf16(acc[dt], pa[ksp], ld32(vrow + ksp * 16),
-                 ld32(vrow + ksp * 16 + 8));
+      for (int ksp = 0; ksp < kBK / 16; ++ksp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vrow + ksp * 16 * kLdK + dt * 8);
+        mma_bf16(acc[dt], pa[ksp], b[0], b[1]);
+        mma_bf16(acc[dt + 1], pa[ksp], b[2], b[3]);
       }
     }
   }
@@ -409,11 +518,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                int batch, int hq, int hkv, int sq, int sk,
-               const long long* st, float scale, int causal,
+               const long long* st, float scale, int causal, int window,
                cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kBlockK) * (D + kPad) +
-                       static_cast<size_t>(D) * (kBlockK + kPad)) *
-                      sizeof(__nv_bfloat16);
+  const size_t smem = Bf16Plan<D>::kSmemBytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -426,19 +533,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       hq, hq / hkv, sq, sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale, causal);
+      st[7], st[8], st[9], st[10], st[11], scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int batch, int hq, int hkv, int sq, int sk, const long long* st,
-           float scale, int causal, cudaStream_t stream) {
-  return dtype == 0
-             ? launch_f32<D>(q, k, v, o, batch, hq, hkv, sq, sk, st, scale,
-                             causal, stream)
-             : launch_bf16<D>(q, k, v, o, batch, hq, hkv, sq, sk, st, scale,
-                              causal, stream);
+           float scale, int causal, int window, cudaStream_t stream) {
+  if constexpr (D > 128) {
+    // float32 takes D <= 128 only (see the note at the top)
+    if (dtype == 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bf16<D>(q, k, v, o, batch, hq, hkv, sq, sk, st, scale,
+                          causal, window, stream);
+  } else {
+    return dtype == 0
+               ? launch_f32<D>(q, k, v, o, batch, hq, hkv, sq, sk, st,
+                               scale, causal, window, stream)
+               : launch_bf16<D>(q, k, v, o, batch, hq, hkv, sq, sk, st,
+                                scale, causal, window, stream);
+  }
 }
 
 }  // namespace
@@ -449,27 +563,33 @@ extern "C" {
 // (B, Hq, Sq, D) are addressed as base + b*s[0] + h*s[1] + t*s[2] + d,
 // in elements, with `strides` = {q's 3, k's 3, v's 3, o's 3}; the head
 // dim is contiguous and every row starts 16-byte aligned.  dtype: 0 for
-// float32, 1 for bfloat16.  D is 32, 64 or 128.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// float32, 1 for bfloat16.  D is 32, 64 or 128, or 256 in bfloat16.
+// window > 0 masks keys at or before q_pos - window and implies causal;
+// 0 is no window.  Returns cudaGetLastError() after the launch (0 on
+// success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int dtype, int batch, int hq, int hkv,
                         int sq, int sk, int d, const long long* strides,
-                        float scale, int causal, void* stream) {
+                        float scale, int causal, int window, void* stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
-      sk <= 0 || (dtype != 0 && dtype != 1)) {
+      sk <= 0 || window < 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (window > 0) causal = 1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
       return launch<32>(dtype, q, k, v, o, batch, hq, hkv, sq, sk, strides,
-                        scale, causal, s);
+                        scale, causal, window, s);
     case 64:
       return launch<64>(dtype, q, k, v, o, batch, hq, hkv, sq, sk, strides,
-                        scale, causal, s);
+                        scale, causal, window, s);
     case 128:
       return launch<128>(dtype, q, k, v, o, batch, hq, hkv, sq, sk, strides,
-                         scale, causal, s);
+                         scale, causal, window, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, o, batch, hq, hkv, sq, sk, strides,
+                         scale, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,11 @@
 // K1: one greedy + EASY-backfill scheduling pass per what-if fork.
 //
 // Replaces repro/kernels/policy_eval.py::_pass_kernel (the Pallas TPU
-// kernel behind the JAX engine's "pallas" backend).  Semantics follow
+// kernel behind the JAX engine's "pallas" backend), through both of its
+// entries: policy_eval_pass_batched (K1: every fork reads its own rows)
+// and policy_eval_pass (K1': one (J,) snapshot shared by the k forks,
+// each with its own order).  The two differ only in the row stride of
+// the per-job arrays (J, or 0 for shared rows) and of free0/now (1 or 0).  Semantics follow
 // the reference pass, repro/core/backfill.py::schedule_pass_with_order,
 // where the two differ:
 //   * node arithmetic (nodes, free, need, cum, extra) is int32;
@@ -117,7 +121,7 @@ pass_kernel(const int* __restrict__ order, const int* __restrict__ state,
             const float* __restrict__ now_in,
             const int* __restrict__ limit_in,
             uint8_t* __restrict__ started_out, int* __restrict__ free_out,
-            int J) {
+            int J, int job_stride, int scalar_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_order = reinterpret_cast<int*>(smem);           // rank -> slot
   int* s_nodes = s_order + J;                            // slot -> nodes
@@ -135,9 +139,10 @@ pass_kernel(const int* __restrict__ order, const int* __restrict__ state,
   __shared__ int sh_started_nodes;
 
   const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.x) * J;
-  const int free_start = free0[blockIdx.x];
-  const float now = now_in[blockIdx.x];
+  const size_t row = static_cast<size_t>(blockIdx.x) * J;       // order, out
+  const size_t jrow = static_cast<size_t>(blockIdx.x) * job_stride;
+  const int free_start = free0[blockIdx.x * scalar_stride];
+  const float now = now_in[blockIdx.x * scalar_stride];
   int limit = limit_in != nullptr ? limit_in[0] : J;
   limit = max(0, min(limit, J));
 
@@ -146,11 +151,11 @@ pass_kernel(const int* __restrict__ order, const int* __restrict__ state,
     sh_started_nodes = 0;
   }
   for (int s = tid; s < J; s += kThreads) {
-    const int st = state[row + s];
+    const int st = state[jrow + s];
     s_order[s] = order[row + s];
-    s_nodes[s] = nodes[row + s];
-    s_est[s] = est[row + s];
-    s_end[s] = end_t[row + s];
+    s_nodes[s] = nodes[jrow + s];
+    s_est[s] = est[jrow + s];
+    s_end[s] = end_t[jrow + s];
     s_flags[s] = (st == kQueued ? kFlagQueued : 0) |
                  (st == kRunning ? kFlagRunning : 0);
   }
@@ -285,6 +290,31 @@ pass_kernel(const int* __restrict__ order, const int* __restrict__ state,
   }
 }
 
+// Launch pass_kernel on `stream` for k forks of J slots.
+int launch(const void* order, const void* state, const void* nodes,
+           const void* est, const void* end_t, const void* free0,
+           const void* now, const void* limit, void* started,
+           void* free_out, int k, int J, int job_stride, int scalar_stride,
+           void* stream) {
+  if (k < 0 || J <= 0 || J > kMaxJ) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0) return 0;
+  const size_t smem = static_cast<size_t>(kBytesPerSlot) * J;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  pass_kernel<<<k, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(order), static_cast<const int*>(state),
+      static_cast<const int*>(nodes), static_cast<const float*>(est),
+      static_cast<const float*>(end_t), static_cast<const int*>(free0),
+      static_cast<const float*>(now), static_cast<const int*>(limit),
+      static_cast<uint8_t*>(started), static_cast<int*>(free_out), J,
+      job_stride, scalar_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -303,22 +333,20 @@ int policy_eval_pass_batched(const void* order, const void* state,
                              const void* now, const void* limit,
                              void* started, void* free_out, int k, int J,
                              void* stream) {
-  if (k < 0 || J <= 0 || J > kMaxJ) return static_cast<int>(cudaErrorInvalidValue);
-  if (k == 0) return 0;
-  const size_t smem = static_cast<size_t>(kBytesPerSlot) * J;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  pass_kernel<<<k, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(order), static_cast<const int*>(state),
-      static_cast<const int*>(nodes), static_cast<const float*>(est),
-      static_cast<const float*>(end_t), static_cast<const int*>(free0),
-      static_cast<const float*>(now), static_cast<const int*>(limit),
-      static_cast<uint8_t*>(started), static_cast<int*>(free_out), J);
-  return static_cast<int>(cudaGetLastError());
+  return launch(order, state, nodes, est, end_t, free0, now, limit, started,
+                free_out, k, J, J, 1, stream);
+}
+
+// Launch K1' on `stream`: the same pass for k forks of one shared
+// snapshot.  order (k, J) int32 contiguous; state/nodes int32 and
+// est/end_t float32 (J,); free0 int32 and now float32 of one element;
+// limit as above.  Writes started (k, J) bytes and free_out int32 (k,).
+int policy_eval_pass(const void* order, const void* state, const void* nodes,
+                     const void* est, const void* end_t, const void* free0,
+                     const void* now, const void* limit, void* started,
+                     void* free_out, int k, int J, void* stream) {
+  return launch(order, state, nodes, est, end_t, free0, now, limit, started,
+                free_out, k, J, 0, 0, stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES: Dict[str, Path] = {
-    "policy_eval": _PKG / "csrc" / "policy_eval.cu",      # K1
+    "policy_eval": _PKG / "csrc" / "policy_eval.cu",      # K1, K1'
+    "rglru": _PKG / "csrc" / "rglru.cu",                  # K2
     "wkv6": _PKG / "csrc" / "wkv6.cu",                    # K3
     "flash_attention": _PKG / "csrc" / "flash_attention.cu",  # K4
 }

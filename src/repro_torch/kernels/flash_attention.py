@@ -16,7 +16,10 @@ built with ``nvcc`` at first use and called through ctypes
 The kernel reads q, k and v through their strides (the head dim must be
 contiguous), so the (B, S, H, D) projections of a model go in as
 transposed views without a copy, and it writes the output into a
-(B, Sq, Hq, D) buffer returned as its (B, Hq, Sq, D) view.
+(B, Sq, Hq, D) buffer returned as its (B, Hq, Sq, D) view.  ``window``
+is the sliding window of local attention (``full_attention``'s
+``local_window``): the Pallas kernel has none; this one bounds its key
+loop by it.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from repro_torch.models.attention import full_attention
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
 LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 128)
+#: Head dims the kernel takes, per dtype (float32 stops at 128).
+HEAD_DIMS = {torch.float32: (32, 64, 128),
+             torch.bfloat16: (32, 64, 128, 256)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _FN = None
@@ -44,7 +49,7 @@ def _kernel():
         fn = build.load("flash_attention").flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -60,15 +65,20 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq % Hkv == 0; one dtype,
     float32 or bfloat16.  Causal masks key positions past the query's
-    (both counted from 0).  Returns (B, Hq, Sq, D) in q's dtype."""
+    (both counted from 0); ``window`` W > 0 also masks keys at or before
+    ``q_pos - W`` and implies causal.  Returns (B, Hq, Sq, D) in q's
+    dtype."""
     global LAUNCHES
     dev = q.device
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if dev.type == "cpu":
-        return full_attention(q, k, v, causal=causal, scale=scale)
+        return full_attention(q, k, v, causal=causal, local_window=window,
+                              scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
@@ -79,12 +89,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[3] != d or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"fit k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"{HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; expected one of float32, bfloat16")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{HEAD_DIMS[q.dtype]} for {q.dtype}")
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k, v on different devices")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -98,7 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, strides, scale,
-                 int(causal), stream)
+                 int(causal or window > 0), int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,3 +1,4 @@
-"""The LM stack on PyTorch: port of ``repro.models`` for the ``dense``
-and ``ssm`` families (``common``, ``attention``, ``blocks_attn``, the
-RWKV6 half of ``blocks_rnn``, ``lm``, ``api``)."""
+"""The LM stack on PyTorch: port of ``repro.models`` for the ``dense``,
+``ssm`` and ``hybrid`` families (``common``, ``attention``,
+``blocks_attn``, the RWKV6 and RG-LRU halves of ``blocks_rnn``, ``lm``,
+``api``)."""

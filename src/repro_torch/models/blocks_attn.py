@@ -1,4 +1,5 @@
-"""Dense attention + MLP blocks (llama family): port of
+"""Attention + MLP blocks (llama's dense block, and with a sliding
+window RecurrentGemma's local block): port of
 ``repro/models/blocks_attn.py`` for one GPU (no sequence parallelism and
 no sharding rules).
 
@@ -12,8 +13,9 @@ Block contract (shared by all block modules):
 positions; ``index`` is decode's write position, a host int (the
 reference's ``positions[0, 0]``: one uniform index for the batch).  In
 decode the cache's tensors are written in place.  ``backend`` "cuda"
-runs prefill attention through K4, the flash-attention kernel, on CUDA
-tensors; "reference" runs its plain version, ``full_attention``.
+runs prefill attention, causal or windowed, through K4, the
+flash-attention kernel, on CUDA tensors; "reference" runs its plain
+version, ``full_attention``.
 """
 from __future__ import annotations
 
@@ -109,14 +111,13 @@ def attn_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                                          kv_valid=valid.expand(b, n_pos))
         new_cache = {"k": cache["k"], "v": cache["v"]}
     else:
-        if backend == "reference" or local_window:
-            # K4 has no window: local attention stays plain (hybrid
-            # family, not served by the port yet)
+        if backend == "reference":
             out = attention.full_attention(
                 q, k, v, causal=True, local_window=local_window,
                 q_block=cfg.q_block)
         else:
-            out = fa_kernel.flash_attention(q, k, v, causal=True)
+            out = fa_kernel.flash_attention(q, k, v, causal=True,
+                                            window=local_window)
         if local_window:
             # ring layout: slot = pos % window
             roll = s % local_window

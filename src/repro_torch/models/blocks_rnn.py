@@ -1,12 +1,16 @@
-"""Recurrent blocks, the RWKV6 "Finch" half: port of
-``repro/models/blocks_rnn.py`` (time mix, channel mix, the WKV6
-recurrence).  The RG-LRU half and ``wkv_chunked`` are not ported yet
-(ROADMAP A11).
+"""Recurrent blocks: port of ``repro/models/blocks_rnn.py``, both halves:
+RWKV6 "Finch" (time mix, channel mix, the WKV6 recurrence) and the
+RG-LRU of RecurrentGemma / Griffin (the recurrent block, its depthwise
+causal conv and the GeGLU MLP).  ``wkv_chunked`` is not ported (no
+caller on any path; ROADMAP A11).
 
 ``wkv_scan`` is the WKV6 recurrence over a sequence, one ``wkv_step``
 per token: the plain version of K3, the CUDA kernel
 (``repro_torch.kernels.wkv6``) that prefill runs on CUDA tensors.
-Decode stays ``wkv_step`` in plain torch, as in the reference.
+``rglru_scan`` is the RG-LRU recurrence, one ``a_t * h + x_t`` per
+token: the plain version of K2 (``repro_torch.kernels.rglru``), which
+RG-LRU prefill runs on CUDA tensors.  Decode stays one plain step in
+both, as in the reference.
 
 Block contract (shared with ``blocks_attn``):
 
@@ -26,8 +30,10 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import rglru as rglru_kernel
 from repro_torch.kernels import wkv6 as wkv6_kernel
-from repro_torch.models.common import ParamTable, layer_norm, matmul
+from repro_torch.models.common import (ParamTable, layer_norm, matmul,
+                                       rms_norm)
 
 Aux = Dict[str, torch.Tensor]
 Cache = Optional[Dict[str, torch.Tensor]]
@@ -211,3 +217,150 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: torch.dtype, device: torch.device
                ) -> Dict[str, torch.Tensor]:
     return init_rwkv_cache(cfg, batch, seq, dtype, device)
+
+
+# ======================================================================
+# RG-LRU (RecurrentGemma / Griffin)
+# ======================================================================
+
+_RGLRU_C = 8.0
+
+
+def rglru_table(cfg: ModelConfig) -> ParamTable:
+    d = cfg.d_model
+    w = cfg.rnn_width or d
+    cw = cfg.conv_width
+    return {
+        "norm.scale": ((d,), (None,)),
+        "rg.w_branch": ((d, w), ("d_model", "rnn")),
+        "rg.w_in": ((d, w), ("d_model", "rnn")),
+        "rg.conv_w": ((cw, w), (None, "rnn")),
+        "rg.conv_b": ((w,), ("rnn",)),
+        "rg.w_rgate": ((w, w), ("rnn", None)),
+        "rg.w_igate": ((w, w), ("rnn", None)),
+        "rg.rgate_bias": ((w,), ("rnn",)),
+        "rg.igate_bias": ((w,), ("rnn",)),
+        "rg.lambda": ((w,), ("rnn",)),
+        "rg.w_out": ((w, d), ("rnn", "d_model")),
+        # GeGLU MLP
+        "mlp.w_gate": ((d, cfg.d_ff), ("d_model", "d_ff")),
+        "mlp.w_up": ((d, cfg.d_ff), ("d_model", "d_ff")),
+        "mlp.w_down": ((cfg.d_ff, d), ("d_ff", "d_model")),
+        "mlp_norm.scale": ((d,), (None,)),
+    }
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, seq: int,
+                     dtype: torch.dtype, device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    w = cfg.rnn_width or cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                            device=device),
+        # h is f32 whatever the cache dtype: it integrates the context
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+    }
+
+
+def _causal_conv(params, x: torch.Tensor, state: Optional[torch.Tensor],
+                 mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv of width cw over x (B, S, W): ``conv_w[cw-1]``
+    weighs the current token, ``conv_w[0]`` the token cw-1 back.  Returns
+    (y, the next conv state: the last cw-1 inputs, zero rows before the
+    first).  The reference's prefill fails on a prompt of fewer than
+    cw-1 tokens (ROADMAP C8); this takes any length and agrees with it
+    wherever it runs."""
+    conv_w, conv_b = params["rg.conv_w"], params["rg.conv_b"]
+    cw = conv_w.shape[0]
+    if mode == "decode":
+        hist = torch.cat([state.to(x.dtype), x], dim=1)      # (B, cw, W)
+        dt = torch.promote_types(hist.dtype, conv_w.dtype)
+        y = torch.einsum("bkw,kw->bw", hist.to(dt), conv_w.to(dt))
+        return (y + conv_b)[:, None], hist[:, 1:]
+    s = x.shape[1]
+    padded = F.pad(x, (0, 0, cw - 1, 0))               # (B, cw-1+S, W)
+    pads = [padded[:, cw - 1 - i:cw - 1 - i + s] for i in range(cw)]
+    y = sum(pads[cw - 1 - k] * conv_w[k] for k in range(cw))
+    return y + conv_b, padded[:, -(cw - 1):]
+
+
+def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + gx_t, one step per token.  a/gx: (B, S, W)
+    f32; h0: (B, W).  Returns (h_final (B, W), h_all (B, S, W))."""
+    h = h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + gx[:, t]
+        hs.append(h)
+    return h, torch.stack(hs, dim=1)
+
+
+def rglru_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
+                cache: Cache, backend: str = "cuda"
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The Griffin recurrent block: GeLU branch * RG-LRU branch.  The
+    casts are the reference's: the gates are sigmoids in the matmul
+    dtype, then f32; the recurrence runs in f32; its output is cast back
+    to the branch's dtype."""
+    branch = F.gelu(matmul(x, params["rg.w_branch"]), approximate="tanh")
+    u = matmul(x, params["rg.w_in"])
+    u, conv_state = _causal_conv(
+        params, u, cache["conv"] if mode == "decode" else None, mode)
+
+    r = torch.sigmoid(matmul(u, params["rg.w_rgate"])
+                      + params["rg.rgate_bias"]).float()
+    i = torch.sigmoid(matmul(u, params["rg.w_igate"])
+                      + params["rg.igate_bias"]).float()
+    log_a = -_RGLRU_C * F.softplus(params["rg.lambda"].float()) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                       1e-12)) * i * u.float()
+
+    if mode == "decode":
+        h_final = a[:, 0] * cache["h"] + gated[:, 0]
+        h = h_final[:, None]
+    else:
+        h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                         device=a.device)
+        if backend == "reference":
+            h_final, h = rglru_scan(a, gated, h0)
+        else:
+            h, h_final = rglru_kernel.rglru(a, gated, h0)
+
+    y = matmul(branch * h.to(branch.dtype), params["rg.w_out"])
+    if mode == "decode":
+        # the reference's new conv state has the activations' dtype:
+        # written in place where the cache has it too (bf16 serving), a
+        # new leaf where it has not (f32 weights over a bf16 cache)
+        if cache["conv"].dtype == conv_state.dtype:
+            conv_state = cache["conv"].copy_(conv_state)
+        cache["h"].copy_(h_final)
+        return y, {"conv": conv_state, "h": cache["h"]}
+    return y, {"conv": conv_state, "h": h_final}
+
+
+def geglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    g = matmul(x, params["mlp.w_gate"])
+    u = matmul(x, params["mlp.w_up"])
+    return matmul(F.gelu(g, approximate="tanh") * u, params["mlp.w_down"])
+
+
+def rglru_block_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
+                      mode: str, cache: Cache, positions: torch.Tensor,
+                      index: Optional[int] = None, backend: str = "cuda"
+                      ) -> Tuple[torch.Tensor, Cache, Aux]:
+    del positions, index                # the recurrence has no positions
+    h = rms_norm(x, params["norm.scale"], cfg.norm_eps)
+    a, new_cache = rglru_apply(cfg, params, h, mode=mode, cache=cache,
+                               backend=backend)
+    x = x + a
+    h = rms_norm(x, params["mlp_norm.scale"], cfg.norm_eps)
+    x = x + geglu_mlp(params, h)
+    return x, new_cache, {}
+
+
+def init_cache_rglru(cfg: ModelConfig, batch: int, seq: int,
+                     dtype: torch.dtype, device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    return init_rglru_cache(cfg, batch, seq, dtype, device)

@@ -1,8 +1,8 @@
 """Generic decoder LM: embeddings + block segments + unembedding.
 
 Port of ``repro/models/lm.py`` for serving (prefill and decode) of the
-``dense`` (llama) and ``ssm`` (RWKV6) families; the others raise when a
-model is built (ROADMAP A11).
+``dense`` (llama), ``ssm`` (RWKV6) and ``hybrid`` (RecurrentGemma)
+families; the others raise when a model is built (ROADMAP A11).
 
 A model is a list of *segments*; each segment is ``n`` layers of one
 block kind.  The reference stacks a scanned segment's parameters on a
@@ -11,6 +11,12 @@ one ``TableModule`` per layer, whose ``attn.wq`` is layer j's slice, and
 layers run in a Python loop.  ``LM.table_entries`` maps the reference's
 names onto the per-layer parameters (``convert`` carries weights across
 with it).  Cache keys are ``seg{i}.l{j}``, as in the reference.
+
+The hybrid family is RecurrentGemma's: ``pattern`` (rglru, rglru,
+local) repeated ``n_layers // 3`` times as one scanned segment, whose
+layer j holds the three blocks' parameters under ``p0.``, ``p1.``,
+``p2.`` and its caches under ``p0``..``p2``, then the remainder layers
+in pattern order, one unscanned segment each.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from repro_torch.models.common import (ParamTable, TableModule, embed,
                                        merge_tables, prefix_table, rms_norm,
                                        stack_table, unembed)
 
-Caches = Dict[str, Dict[str, torch.Tensor]]
+#: ``seg{i}.l{j}`` -> the layer's cache: ``{name: tensor}``, or for a
+#: pattern layer ``{"p{k}": {name: tensor}}``.
+Caches = Dict[str, Dict[str, Any]]
 
 
 class Segment(NamedTuple):
@@ -41,15 +49,64 @@ def plan_segments(cfg: ModelConfig) -> List[Segment]:
         return [Segment("dense", cfg.n_layers, cfg.use_scan)]
     if cfg.family == "ssm":
         return [Segment("rwkv", cfg.n_layers, cfg.use_scan)]
+    if cfg.family == "hybrid":
+        reps, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
+        segs = [Segment("pattern", reps, cfg.use_scan)]
+        for k in range(rem):  # remainder layers follow the pattern order
+            segs.append(Segment(cfg.block_pattern[k], 1, False))
+        return segs
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-        f"yet (ROADMAP A11); ported: dense, ssm")
+        f"yet (ROADMAP A11); ported: dense, ssm, hybrid")
+
+
+# ----------------------------------------------------------------------
+# Block registry
+# ----------------------------------------------------------------------
+
+def _local_apply(cfg, params, x, *, mode, cache, positions, index=None,
+                 backend="cuda"):
+    return blocks_attn.apply(cfg, params, x, mode=mode, cache=cache,
+                             positions=positions, index=index,
+                             local_window=cfg.local_window, backend=backend)
+
+
+def _local_cache(cfg, batch, seq, dtype, device):
+    return blocks_attn.init_attn_cache(cfg, batch, seq, dtype, device)
+
+
+def _pattern_table(cfg: ModelConfig) -> ParamTable:
+    return merge_tables(*(prefix_table(f"p{j}", BLOCKS[kind][0](cfg))
+                          for j, kind in enumerate(cfg.block_pattern)))
+
+
+def _pattern_apply(cfg, params, x, *, mode, cache, positions, index=None,
+                   backend="cuda"):
+    new_cache = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        pre = f"p{j}."
+        sub = {k[len(pre):]: v for k, v in params.items()
+               if k.startswith(pre)}
+        x, new_cache[f"p{j}"], _ = BLOCKS[kind][1](
+            cfg, sub, x, mode=mode,
+            cache=cache[f"p{j}"] if mode == "decode" else None,
+            positions=positions, index=index, backend=backend)
+    return x, new_cache, {}
+
+
+def _pattern_cache(cfg, batch, seq, dtype, device):
+    return {f"p{j}": BLOCKS[kind][2](cfg, batch, seq, dtype, device)
+            for j, kind in enumerate(cfg.block_pattern)}
 
 
 BLOCKS: Dict[str, Tuple[Any, Any, Any]] = {
     "dense": (blocks_attn.table, blocks_attn.apply, blocks_attn.init_cache),
     "rwkv": (blocks_rnn.table, blocks_rnn.apply, blocks_rnn.init_cache),
+    "rglru": (blocks_rnn.rglru_table, blocks_rnn.rglru_block_apply,
+              blocks_rnn.init_cache_rglru),
+    "local": (blocks_attn.table, _local_apply, _local_cache),
 }
+BLOCKS["pattern"] = (_pattern_table, _pattern_apply, _pattern_cache)
 
 
 # ----------------------------------------------------------------------

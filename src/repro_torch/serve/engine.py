@@ -120,9 +120,7 @@ class ServingEngine:
                                  device=self.model.device)
         logits, caches1 = self._prefill(self.model, {"tokens": prompt})
         tok, gap = greedy(logits[:, -1])
-        for key, layer in self.caches.items():
-            for name, big in layer.items():
-                _write_slot(big, caches1[key][name], slot)
+        _write_caches(self.caches, caches1, slot)
         tok, gap = int(tok[0]), float(gap[0])
         req.output.append(tok)
         req.margins.append(gap)
@@ -173,6 +171,17 @@ class ServingEngine:
             if self.step() == 0 and not self.queue:
                 return
         raise RuntimeError("serving engine did not drain")
+
+
+def _write_caches(big: Caches, small: Caches, slot: int) -> None:
+    """``_write_slot`` on every leaf of the batched caches, which nest
+    (a pattern layer holds one sub-cache per block), from the batch-1
+    caches of one prefill."""
+    for name, leaf in big.items():
+        if isinstance(leaf, dict):
+            _write_caches(leaf, small[name], slot)
+        else:
+            _write_slot(leaf, small[name], slot)
 
 
 def _write_slot(big: torch.Tensor, small: torch.Tensor, slot: int) -> None:

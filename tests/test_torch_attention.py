@@ -8,8 +8,13 @@ package's.
   two sum in different orders).
 * The K4 wrapper on CPU tensors (its plain version) vs JAX's Pallas
   ``ops.flash_attention`` in interpret mode, at the shapes of
-  ``tests/test_kernels_flash.py``: float32 atol = rtol = 2e-5; bfloat16
-  3e-2, as JAX's own ``test_flash_bf16_storage``.
+  ``tests/test_kernels_flash.py`` and at recurrentgemma's head dim 256:
+  float32 atol = rtol = 2e-5; bfloat16 3e-2, as JAX's own
+  ``test_flash_bf16_storage``.
+* The K4 wrapper's sliding window (``window=W``; the Pallas kernel has
+  none) vs JAX's ``full_attention(local_window=W)``: head dims 64 and
+  256, MQA and GQA, W of 16, 100 (not a multiple of the kernel's key
+  tile) and wider than the sequence.  float32, 2e-5.
 * ``decode_attention`` (with a validity mask) and ``update_cache``
   (including an index past the end, which both clamp) vs JAX.
 * K4 itself on the card: ``tests/test_torch_cuda.py``.
@@ -49,9 +54,10 @@ def _j(*arrays, dtype=jnp.float32):
      (2, 4, 4, 50, 50, 16, True, 8, 16, 0),      # local window
      (1, 4, 2, 12, 40, 16, True, 0, 8, 28),      # q_offset: a later chunk
      (1, 2, 1, 10, 30, 16, True, 6, 4, 20),      # local + q_offset
-     (2, 4, 1, 24, 24, 64, True, 0, 512, 0)],    # one block
+     (2, 4, 1, 24, 24, 64, True, 0, 512, 0),     # one block
+     (1, 4, 1, 70, 70, 256, True, 16, 16, 0)],   # recurrentgemma's local
     ids=["gqa-causal", "mqa-bidir", "local", "q-offset", "local-offset",
-         "one-block"])
+         "one-block", "local-d256"])
 def test_full_attention_matches_jax(b, hq, hkv, sq, sk, d, causal, window,
                                     q_block, q_offset):
     q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=sq + sk)
@@ -70,6 +76,7 @@ def test_full_attention_matches_jax(b, hq, hkv, sq, sk, d, causal, window,
     (2, 4, 2, 256, 32),    # GQA group 2
     (1, 8, 1, 256, 64),    # MQA
     (1, 2, 2, 512, 128),
+    (1, 2, 1, 128, 256),   # recurrentgemma's head dim, MQA
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wrapper_matches_pallas_f32(b, hq, hkv, s, d, causal):
@@ -93,6 +100,28 @@ def test_flash_wrapper_matches_pallas_bf16():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 10, 1, 200, 256, 100),     # recurrentgemma's heads, W % 64 != 0
+    (2, 4, 2, 150, 64, 16),
+    (1, 2, 1, 64, 256, 2048),      # W past the sequence: plain causal
+    (1, 4, 1, 130, 256, 64)])
+def test_flash_wrapper_window_matches_jax(b, hq, hkv, s, d, window):
+    q, k, v = _qkv(b, hq, hkv, s, s, d, seed=s + window)
+    want = jattn.full_attention(*_j(q, k, v), causal=True,
+                                local_window=window, q_block=64)
+    launches = fa.LAUNCHES
+    got = fa.flash_attention(*_t(q, k, v), causal=True, window=window)
+    assert fa.LAUNCHES == launches          # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    # the window implies causal, as local_window does
+    got = fa.flash_attention(*_t(q, k, v), causal=False, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(*_t(q, k, v), window=-1)
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (4, 1)])

@@ -1,27 +1,38 @@
-"""K3 and K4, the port's model kernels, against their plain versions on
-a CUDA card.  Every test is marked ``cuda`` and skips on a host without
+"""K1', K2, K3 and K4 against their plain versions on a CUDA card.  Every test is marked ``cuda`` and skips on a host without
 one: a CUDA kernel has no CPU mode.  This file imports neither JAX nor
 the JAX package, so that it runs on the GPU machine, which has no JAX:
 
     python3 -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 * K4 (``kernels.flash_attention``) vs ``models.attention.full_attention``:
-  every head dim and dtype it takes, causal and not, ragged Sq and Sk
-  (including Sq != Sk and single rows), q/k/v as strided views of
-  (B, S, H, D) projections.  Tolerance: float32 atol = rtol = 2e-5,
-  bfloat16 3e-2 (JAX's own flash tests' tolerances).
+  every head dim and dtype it takes (float32 refuses D = 256), causal and
+  not, ragged Sq and Sk (including Sq != Sk and single rows), q/k/v as
+  strided views of (B, S, H, D) projections; then recurrentgemma's local
+  layer (bf16, Hq 10, Hkv 1, D 256) with windows of 100 (not a multiple
+  of the key tile, so a row's first tile can lie wholly outside its
+  window) and 2048, at ragged S up to 3072, and the window in float32.
+  Tolerance: float32 atol = rtol = 2e-5, bfloat16 3e-2 (JAX's own flash
+  tests' tolerances).
 * K3 (``kernels.wkv6``) vs ``models.blocks_rnn.wkv_scan`` from a zero
   state: every head size it takes, S of 1, 37 and 1000.  Tolerance:
   atol = rtol = 2e-4 (``tests/test_kernels_recurrent.py``'s).
+* K2 (``kernels.rglru``) vs ``models.blocks_rnn.rglru_scan``: zero and
+  nonzero h0, ragged S and W, recurrentgemma's width.  Bitwise: both
+  round the product and the sum apart.
+* K1' (``kernels.policy_eval.policy_eval_pass``) vs its plain version,
+  the batched pass on the shared rows expanded to k, at k = 32 and
+  J = 1024 and at the largest J.  Bitwise (integers).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import policy_eval as pe
+from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.attention import full_attention
-from repro_torch.models.blocks_rnn import wkv_scan
+from repro_torch.models.blocks_rnn import rglru_scan, wkv_scan
 
 
 def _card():
@@ -30,13 +41,18 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", (32, 64, 128, 256))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)],
                          ids=["f32", "bf16"])
 def test_flash_attention_matches_plain_version(d, dtype, tol):
     _card()
     gen = torch.Generator(device="cuda").manual_seed(d)
+    if d not in fa.HEAD_DIMS[dtype]:
+        q = torch.zeros((1, 2, 8, d), device="cuda", dtype=dtype)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(q, q, q)
+        return
     for b, hq, hkv, sq, sk in ((2, 4, 2, 100, 100), (1, 8, 1, 65, 200),
                                (1, 32, 8, 1000, 1000), (3, 2, 2, 1, 1)):
         for causal in (True, False):
@@ -74,3 +90,79 @@ def test_wkv6_matches_plain_version(n):
         assert wk.LAUNCHES == launches + 1
         torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
         torch.testing.assert_close(st, st_ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [100, 2048])
+def test_flash_attention_window_matches_plain_version(window):
+    """recurrentgemma-2b's local layer: bf16, Hq 10, Hkv 1, D 256."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(window)
+    for s in (1, 100, 333, 2048, 2500, 3072):
+        def proj(h):
+            return torch.randn((1, s, h, 256), generator=gen, device="cuda",
+                               dtype=torch.bfloat16).transpose(1, 2)
+        q, k, v = proj(10), proj(1), proj(1)
+        launches = fa.LAUNCHES
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = full_attention(q, k, v, causal=True, local_window=window)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == launches + 1
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (32, 64, 128))
+def test_flash_attention_window_f32_matches_plain_version(d):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for s, window in ((200, 100), (130, 64), (65, 1)):
+        q = torch.randn((2, 4, s, d), generator=gen, device="cuda")
+        k = torch.randn((2, 2, s, d), generator=gen, device="cuda")
+        v = torch.randn((2, 2, s, d), generator=gen, device="cuda")
+        got = fa.flash_attention(q, k, v, window=window)
+        want = full_attention(q, k, v, causal=True, local_window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", [(1, 1, 1), (2, 37, 24), (1, 300, 100),
+                                   (3, 129, 2560), (1, 2048, 2560)])
+def test_rglru_matches_plain_version(b, s, w):
+    _card()
+    rng = np.random.default_rng(s + w)
+    a = torch.sigmoid(torch.from_numpy(rng.standard_normal(
+        (b, s, w)).astype(np.float32))).cuda()
+    x = torch.from_numpy(rng.standard_normal((b, s, w)).astype(
+        np.float32)).cuda()
+    for h0 in (torch.zeros((b, w), device="cuda"),
+               torch.from_numpy(5.0 * rng.standard_normal((b, w)).astype(
+                   np.float32)).cuda()):
+        launches = rg.LAUNCHES
+        h_all, h_final = rg.rglru(a, x, h0)
+        want_final, want_all = rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        assert rg.LAUNCHES == launches + 1
+        assert torch.equal(h_all, want_all)
+        assert torch.equal(h_final, want_final)
+
+
+@pytest.mark.cuda
+def test_shared_pass_matches_plain_version():
+    _card()
+    import sys
+    import pathlib
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    for k, J, seed, collide in ((3, 64, 0, True), (32, 1024, 1, True),
+                                (32, 1024, 2, False), (8, pe.MAX_J, 3, True)):
+        args = chip_smoke.shared_passes(torch, k, J, seed, collide)
+        launches = pe.SHARED_LAUNCHES
+        s_k, f_k = pe.policy_eval_pass(*args)
+        s_p, f_p = pe.shared_pass_plain(*args)
+        torch.cuda.synchronize()
+        assert pe.SHARED_LAUNCHES == launches + 1
+        assert torch.equal(s_k, s_p) and torch.equal(f_k, f_p)

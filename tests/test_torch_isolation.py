@@ -7,7 +7,8 @@
 * On a host without a CUDA device, every entry point asked for
   ``device="cuda"`` (their default) raises instead of running on the
   CPU, the twin's and the serving stack's alike, and every kernel
-  wrapper (K1, K3, K4) raises for anything but CPU or CUDA tensors.
+  wrapper (K1, K1', K2, K3, K4) raises for anything but CPU or CUDA
+  tensors.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -32,6 +33,7 @@ from repro_torch.core.twin import SchedTwin
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import policy_eval as pe
+from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.launch import serve, twin_loop
 from repro_torch.models import api
@@ -136,7 +138,7 @@ def test_serving_entry_points_raise_for_cuda_without_a_card():
             call()
 
 
-@pytest.mark.parametrize("kernel", ["wkv6", "flash_attention"])
+@pytest.mark.parametrize("kernel", ["wkv6", "flash_attention", "rglru"])
 def test_model_kernel_wrappers_refuse_other_devices(kernel):
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -145,16 +147,21 @@ def test_model_kernel_wrappers_refuse_other_devices(kernel):
     if kernel == "wkv6":
         args = (torch.empty((1, 4, 2, 16), **meta),) * 4 + (
             torch.empty((2, 16), **meta),)
-        wrapper, launches = wk.wkv6, wk.LAUNCHES
+        wrapper, module = wk.wkv6, wk
+    elif kernel == "rglru":
+        args = (torch.empty((2, 5, 24), **meta),) * 2 + (
+            torch.empty((2, 24), **meta),)
+        wrapper, module = rg.rglru, rg
     else:
         args = (torch.empty((1, 4, 8, 32), **meta),
                 torch.empty((1, 2, 8, 32), **meta),
                 torch.empty((1, 2, 8, 32), **meta))
-        wrapper, launches = fa.flash_attention, fa.LAUNCHES
+        wrapper, module = fa.flash_attention, fa
+    launches = module.LAUNCHES
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*args)
     out = wrapper(*(torch.zeros_like(a, device="cpu") for a in args))
-    assert (wk.LAUNCHES if kernel == "wkv6" else fa.LAUNCHES) == launches
+    assert module.LAUNCHES == launches
     assert all(torch.isfinite(t).all() for t in
                (out if isinstance(out, tuple) else (out,)))
 
@@ -174,6 +181,16 @@ def test_kernel_wrapper_refuses_without_a_card():
         *(torch.zeros_like(a, device="cpu") for a in args))
     assert pe.LAUNCHES == launches     # CPU tensors: the plain pass
     assert started.dtype == torch.bool and free.dtype == torch.int32
+    # K1': one shared (J,) snapshot under k orders
+    shared = (args[0],) + tuple(a[0] for a in args[1:5]) + (
+        args[5][:1], args[6][:1])
+    with pytest.raises(ValueError, match="unsupported device"):
+        pe.policy_eval_pass(*shared)
+    launches = pe.SHARED_LAUNCHES
+    started, free = pe.policy_eval_pass(
+        *(torch.zeros_like(a, device="cpu") for a in shared))
+    assert pe.SHARED_LAUNCHES == launches
+    assert started.shape == (2, 8) and free.shape == (2,)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The port's LM stack (``repro_torch.models``, ``convert``) against the
-JAX package's, for the two families it serves: ``dense``
-(llama3.2-1b) and ``ssm`` (rwkv6-7b).
+JAX package's, for the three families it serves: ``dense``
+(llama3.2-1b), ``ssm`` (rwkv6-7b) and ``hybrid`` (recurrentgemma-2b:
+a scanned (rglru, rglru, local) pattern segment, then a remainder rglru
+layer, with nested per-block caches).
 
 * ``param_table``: names, shapes and logical axes equal to JAX's, full
   size and smoke; ``count_params`` equal at full size (no allocation).
@@ -14,11 +16,15 @@ JAX package's, for the two families it serves: ``dense``
   and torch sum in different orders); caches stored in bf16 (decode's
   KV and token-shift rows) to one bf16 ulp, atol 1e-2 relative to the
   values' scale (an f32 value within rounding distance of a bf16 tie
-  can round either way).
+  can round either way).  The prompts (21 and 32 tokens) are longer than
+  recurrentgemma's smoke window of 16, so the local layer's prefill
+  window and its decode ring both wrap.
 * The port's own golden consistency, as ``tests/test_models_smoke.py``
   checks JAX's: prefill(S tokens) + decode(token S) equals prefill(S+1
   tokens) at the last position, with bf16 weights from the port's own
-  init (same tolerances as the JAX test: 3e-2 dense, 5e-2 RWKV).
+  init (same tolerances as the JAX test: 3e-2 dense, 5e-2 RWKV; 5e-2 for
+  recurrentgemma, whose f32 recurrence meets bf16 activations as
+  RWKV's does).
 """
 import functools
 
@@ -38,7 +44,7 @@ from repro_torch.configs import ARCH_ORDER, get_config, get_smoke_config
 from repro_torch.models import api, common, lm
 from repro_torch.serve.engine import _write_slot
 
-ARCHS = ("llama3.2-1b", "rwkv6-7b")
+ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
 RTOL, ATOL = 1e-4, 1e-5
 CPU = "cpu"
 
@@ -96,12 +102,13 @@ def test_param_table_matches_jax(arch, smoke):
     assert common.count_params(got) == jcount(want)
     if not smoke:
         expect = {"llama3.2-1b": 1_235_814_400,
-                  "rwkv6-7b": 7_577_014_272}[arch]
+                  "rwkv6-7b": 7_577_014_272,
+                  "recurrentgemma-2b": 3_549_934_080}[arch]
         assert common.count_params(got) == expect
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_ORDER if get_config(a).family
-                                  not in ("dense", "ssm")])
+                                  not in ("dense", "ssm", "hybrid")])
 def test_unported_family_raises(arch):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="A11"):
@@ -154,10 +161,17 @@ def test_convert_round_trip(arch, dtype):
     for name in d:
         assert back[name].dtype == np.float32
         np.testing.assert_array_equal(back[name], d[name], err_msg=name)
-    # layer j of a scanned entry is slice j of the stacked array
-    name = "seg0.attn.wq" if arch == "llama3.2-1b" else "seg0.tm.wr"
-    layer = model.segs[0][1].get_parameter(name[len("seg0."):])
-    np.testing.assert_array_equal(layer.float().numpy(), d[name][1])
+    # layer j of a scanned entry is slice j of the stacked array; an
+    # unscanned layer holds its entry whole
+    name = {"llama3.2-1b": "seg0.attn.wq", "rwkv6-7b": "seg0.tm.wr",
+            "recurrentgemma-2b": "seg0.p2.attn.wq"}[arch]
+    j = len(model.segs[0]) - 1
+    layer = model.segs[0][j].get_parameter(name[len("seg0."):])
+    np.testing.assert_array_equal(layer.float().numpy(), d[name][j])
+    if arch == "recurrentgemma-2b":
+        layer = model.segs[1][0].get_parameter("rg.w_in")
+        np.testing.assert_array_equal(layer.float().numpy(),
+                                      d["seg1.l0.rg.w_in"])
     with pytest.raises(KeyError):
         convert.params_from_numpy(cfg, {**d, "bogus": d["embed"]},
                                   device=CPU)
@@ -167,8 +181,9 @@ def test_convert_round_trip(arch, dtype):
 
 @pytest.mark.parametrize("arch,gqa", [("llama3.2-1b", False),
                                       ("llama3.2-1b", True),
-                                      ("rwkv6-7b", False)],
-                         ids=["llama", "llama-gqa", "rwkv"])
+                                      ("rwkv6-7b", False),
+                                      ("recurrentgemma-2b", False)],
+                         ids=["llama", "llama-gqa", "rwkv", "rgemma"])
 def test_prefill_and_decode_match_jax(arch, gqa, mesh11, rules_decode):
     jcfg, cfg = _cfgs(arch, gqa)
     jparams, npd = _jax_params(arch, gqa)
@@ -185,20 +200,26 @@ def test_prefill_and_decode_match_jax(arch, gqa, mesh11, rules_decode):
     assert logits.shape == (b, 1, cfg.vocab_size)
     assert logits.dtype == torch.float32
     _close(logits, jlogits, "prefill logits")
-    assert set(caches) == set(jcaches)
-    for key in jcaches:
-        for name in jcaches[key]:
-            _close(caches[key][name], jcaches[key][name],
-                   f"prefill cache {key}.{name}")
+    flat, jflat = _flat(caches), _flat(jcaches)
+    assert set(flat) == set(jflat)
+    for name, want in jflat.items():
+        _close(flat[name], want, f"prefill cache {name}")
 
-    # decode one token from caches padded to max_seq (bf16, as served)
+    # decode one token from caches padded to max_seq (bf16, as served):
+    # the port's slot writes match JAX's padding, and both packages then
+    # decode from the port's cache bytes (an f32 value at a bf16 rounding
+    # tie may round apart in the two, which would move the logits by
+    # more than their tolerance)
     jfull = japi.init_caches(jcfg, b, max_seq)
     jfull = jax.tree.map(_blit, jfull, jcaches)
     full = api.init_caches(cfg, b, max_seq, device=CPU)
-    for key, layer in full.items():
-        for name, big in layer.items():
-            for slot in range(b):
-                _write_slot(big, caches[key][name][slot:slot + 1], slot)
+    jflat_full = _flat(jfull)
+    for name, big in _flat(full).items():
+        for slot in range(b):
+            _write_slot(big, flat[name][slot:slot + 1], slot)
+        (_close if big.dtype == torch.float32 else _close_bf16)(
+            big, jflat_full[name], f"slot cache {name}")
+    jfull = _tree_like(jfull, full)
     step = toks[:, s:]
     with mesh11:
         jlogits2, jcaches2 = japi.decode_step(
@@ -209,27 +230,49 @@ def test_prefill_and_decode_match_jax(arch, gqa, mesh11, rules_decode):
             cfg, model, full, {"tokens": torch.from_numpy(step).long(),
                                "index": s})
     _close(logits2, jlogits2, "decode logits")
-    for key in jcaches2:
-        for name, want in jcaches2[key].items():
-            got = caches2[key][name]
-            assert got.dtype == {jnp.float32: torch.float32,
-                                 jnp.bfloat16: torch.bfloat16}[
-                                     jnp.dtype(want.dtype).type]
-            if got.dtype == torch.float32:
-                _close(got, want, f"decode cache {key}.{name}")
-            else:
-                _close_bf16(got, want, f"decode cache {key}.{name}")
+    flat2 = _flat(caches2)
+    for name, want in _flat(jcaches2).items():
+        got = flat2[name]
+        assert got.dtype == {jnp.float32: torch.float32,
+                             jnp.bfloat16: torch.bfloat16}[
+                                 jnp.dtype(want.dtype).type]
+        if got.dtype == torch.float32:
+            _close(got, want, f"decode cache {name}")
+        else:
+            _close_bf16(got, want, f"decode cache {name}")
+
+
+def _flat(tree, prefix=""):
+    """``{dotted name: leaf}`` of nested cache dicts (either package's)."""
+    out = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.update(_flat(leaf, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = leaf
+    return out
+
+
+def _tree_like(jtree, tree):
+    """``tree``'s leaves (the port's) as JAX arrays of ``jtree``'s
+    dtypes."""
+    return {key: _tree_like(jleaf, tree[key]) if isinstance(jleaf, dict)
+            else jnp.asarray(_np(tree[key])).astype(jleaf.dtype)
+            for key, jleaf in jtree.items()}
 
 
 def _blit(big, small):
+    """``small`` zero-padded up to ``big``'s shape, in ``big``'s dtype (as
+    the engine's slot writes store it)."""
     if big.shape == small.shape:
-        return small
+        return small.astype(big.dtype)
     pads = [(0, b - s) for b, s in zip(big.shape, small.shape)]
     return jnp.pad(small, pads).astype(big.dtype)
 
 
 @pytest.mark.parametrize("arch,tol", [("llama3.2-1b", 3e-2),
-                                      ("rwkv6-7b", 5e-2)])
+                                      ("rwkv6-7b", 5e-2),
+                                      ("recurrentgemma-2b", 5e-2)])
 def test_decode_matches_full_forward(arch, tol):
     """prefill(S) + decode(token S) == prefill(S+1) at the last
     position, on the port alone (bf16 weights from its own init)."""
@@ -241,10 +284,10 @@ def test_decode_matches_full_forward(arch, tol):
         want, _ = api.prefill(cfg, model, {"tokens": toks})
         _, caches = api.prefill(cfg, model, {"tokens": toks[:, :s]})
         full = api.init_caches(cfg, b, s + 1, device=CPU)
-        for key, layer in full.items():
-            for name, big in layer.items():
-                small = caches[key][name]
-                big[tuple(slice(0, n) for n in small.shape)] = small
+        flat = _flat(caches)
+        for name, big in _flat(full).items():
+            small = flat[name]
+            big[tuple(slice(0, n) for n in small.shape)] = small
         got, _ = api.decode_step(cfg, model, full,
                                  {"tokens": toks[:, s:], "index": s})
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol,
