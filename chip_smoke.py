@@ -25,12 +25,15 @@ Phases (each prints its own lines; any failure exits non-zero):
   5. K1' (the pass on one shared snapshot) through ``ops.twin_schedule_pass``
      on the six Polaris mirrors of phase 4 (k=32, J=1024) and on forced
      collisions: bitwise against its plain version, time and bound;
-  6. K4 (flash attention) against its plain version at llama3.2-1b's
-     prefill shapes (B=1, Hq=32, Hkv=8, D=64; S 1000 and 2048 bf16
-     causal, 1000 f32, 1000 non-causal), and at recurrentgemma-2b's local
-     layer (bf16, Hq=10, Hkv=1, D=256, window 2048 at S 2048 and 3072,
-     window 100 at S 1000), with its time beside the plain version's,
-     ``scaled_dot_product_attention``'s and the bound;
+  6. K4 (flash attention): ptxas's registers, spills and shared memory
+     per head dim of the bf16 kernel; K4 against its plain version at
+     llama3.2-1b's prefill shapes (B=1, Hq=32, Hkv=8, D=64; S 1000 and
+     2048 bf16 causal, 1000 f32, 1000 non-causal), and at
+     recurrentgemma-2b's local layer (bf16, Hq=10, Hkv=1, D=256, window
+     2048 at S 2048 and 3072, window 100 at S 1000); its time (launches
+     of the C entry, timed in turns with ``scaled_dot_product_attention``:
+     kernel, sdpa, sdpa, kernel) beside SDPA's, the plain version's and
+     the bound;
   7. K3 (WKV6) against its plain version at rwkv6-7b's prefill shapes
      (B=1, H=64, N=64, S 1000 and 1024, f32), with times and bound;
   8. K2 (the RG-LRU scan) against its plain version at recurrentgemma-2b's
@@ -99,6 +102,7 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------- phase 1
 def build_kernels():
+    """Build every kernel with ptxas's report; returns {name: log}."""
     from repro_torch.kernels import build
     done = build.build(force=True, extra_flags=("-Xptxas", "-v"))
     for name, (seconds, log) in done.items():
@@ -107,6 +111,32 @@ def build_kernels():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+    return {name: log for name, (_, log) in done.items()}
+
+
+def ptxas_by_head_dim(log, kernel="flash_wgmma_kernel"):
+    """{D: (registers, spill stores, spill loads)} of ``kernel``'s
+    instantiations in ptxas's ``-v`` report."""
+    import re
+    rows, d = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '.*?" + kernel + r"ILi(\d+)E", line)
+        if m:
+            d = int(m.group(1))
+            rows[d] = [0, 0, 0]
+            continue
+        if "entry function" in line:
+            d = None
+        if d is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[d][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[d][0] = int(m.group(1))
+    return {d: tuple(r) for d, r in rows.items()}
 
 
 # ---------------------------------------------------------- phase 4 input
@@ -565,29 +595,62 @@ def worst_excess(got, want, tol):
     return err, ok
 
 
-def sdpa_ms(torch, q, k, v, causal):
+def sdpa_call(torch, q, k, v, causal, window=0):
     """One PyTorch call computing K4's function, timed as the library
     yardstick only (the port never calls it).  Where the installed torch
-    lacks ``enable_gqa``, k/v are repeated outside the timed region."""
+    lacks ``enable_gqa``, or a window needs a boolean mask, k/v are
+    repeated outside the timed region."""
     F = torch.nn.functional
+    group = q.shape[1] // k.shape[1]
+    if window:
+        s = q.shape[2]
+        pos = torch.arange(s, device=q.device)
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+        kr = k.repeat_interleave(group, 1)
+        vr = v.repeat_interleave(group, 1)
+        return lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                      attn_mask=mask)
     try:
         F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                        enable_gqa=True)
-        call = lambda: F.scaled_dot_product_attention(
+        return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
     except TypeError:
-        group = q.shape[1] // k.shape[1]
         kr = k.repeat_interleave(group, 1)
         vr = v.repeat_interleave(group, 1)
-        call = lambda: F.scaled_dot_product_attention(q, kr, vr,
+        return lambda: F.scaled_dot_product_attention(q, kr, vr,
                                                       is_causal=causal)
-    return time_median_ms(torch, call, 20)
+
+
+def k4_raw_launch(torch, fa, q, k, v, causal, window=0):
+    """K4 launched straight through its C entry on fixed buffers, so
+    that back-to-back launches time the kernel (and the C entry's tensor
+    maps), not the wrapper's checks and allocations."""
+    fn = fa._kernel()
+    _, args = fa.launch_args(q, k, v, causal=causal, window=window,
+                             scale=None)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*args, stream) != 0:
+            raise SystemExit("[k4] launch failed")
+    return launch
+
+
+def k4_in_turns(torch, kernel, library, n=20):
+    """kernel, library, library, kernel: (kernel ms, library ms), each
+    the mean of its two turns' medians, and the four turns."""
+    turns = [time_median_ms(torch, fn, n)
+             for fn in (kernel, library, library, kernel)]
+    return ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns)
 
 
 def check_k4(torch):
     """K4 against full_attention on the card at llama3.2-1b's prefill
     shapes (B=1, Hq=32, Hkv=8, D=64), q/k/v as the model hands them over
-    (transposed views of (B, S, H, D) projections)."""
+    (transposed views of (B, S, H, D) projections).  bf16 causal: kernel
+    and SDPA timed in turns."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import full_attention
     cases = [(1000, torch.bfloat16, True), (2048, torch.bfloat16, True),
@@ -609,19 +672,26 @@ def check_k4(torch):
         if not ok or out.dtype != dtype or not torch.isfinite(out).all():
             raise SystemExit(f"[k4] MISMATCH on {name}: max abs err {err} "
                              f"(atol = rtol = {tol})")
-        ms = time_median_ms(torch, lambda: fa.flash_attention(
+        wrapper = time_median_ms(torch, lambda: fa.flash_attention(
             q, k, v, causal=causal), 10)
         plain = time_median_ms(torch, lambda: full_attention(
             q, k, v, causal=causal, q_block=512), 3, reps=3)
-        lib = sdpa_ms(torch, q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal)
+        ms, lib, turns = k4_in_turns(
+            torch, k4_raw_launch(torch, fa, q, k, v, causal),
+            sdpa_call(torch, q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal))
         flops = 4 * 32 * s * s * 64 / (2 if causal else 1)
         nbytes = (2 * 32 + 2 * 8) * s * 64 * q.element_size()
         bnd, by = bound(nbytes, flops,
                         989e12 if dtype == torch.bfloat16 else OP_RATE)
         print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = {tol}); "
-              f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
-              f"sdpa {lib * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by})")
+              f"kernel {ms * 1e3:.1f} us (turns "
+              f"{turns[0] * 1e3:.1f}/{turns[3] * 1e3:.1f}; "
+              f"{wrapper * 1e3:.1f} us a wrapper call), sdpa "
+              f"{lib * 1e3:.1f} us (turns {turns[1] * 1e3:.1f}/"
+              f"{turns[2] * 1e3:.1f}), plain {plain * 1e3:.1f} us, bound "
+              f"{bnd * 1e3:.2f} us ({by}; kernel at "
+              f"{100 * bnd / ms:.1f}% of it, sdpa {100 * bnd / lib:.1f}%)")
         rows[(s, dtype, causal)] = dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain, bound_ms=bnd,
                                         bound_by=by, library_ms=lib)
@@ -631,9 +701,10 @@ def check_k4(torch):
 def check_k4_local(torch):
     """K4 against full_attention at recurrentgemma-2b's local layer
     (B=1, Hq=10, Hkv=1, D=256, bf16, causal): window 2048 at S 2048
-    (where it does not bite, so SDPA computes the same function) and
-    3072, and window 100 at S 1000 (a row's first key tile can lie
-    wholly outside its window).  Times: S 2048 and 3072."""
+    (where it does not bite, so causal SDPA computes the same function)
+    and 3072 (SDPA with the window as a boolean mask), and window 100 at
+    S 1000 (a row's first key tile can lie wholly outside its window).
+    Times, kernel and SDPA in turns: S 2048 and 3072."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import full_attention
     gen = torch.Generator(device="cuda").manual_seed(256)
@@ -658,13 +729,13 @@ def check_k4_local(torch):
                   f"3e-2)")
             rows["w100"] = dict(max_abs_err=err)
             continue
-        ms = time_median_ms(torch, lambda: fa.flash_attention(
-            q, k, v, causal=True, window=window), 10)
         plain = time_median_ms(torch, lambda: full_attention(
             q, k, v, causal=True, local_window=window, q_block=512), 3,
             reps=3)
-        lib = (sdpa_ms(torch, q.contiguous(), k.contiguous(),
-                       v.contiguous(), True) if s <= window else None)
+        ms, lib, turns = k4_in_turns(
+            torch, k4_raw_launch(torch, fa, q, k, v, True, window),
+            sdpa_call(torch, q.contiguous(), k.contiguous(), v.contiguous(),
+                      True, window if s > window else 0))
         # (query, key) pairs inside the causal window, as this data needs
         pairs = (min(s, window) * (min(s, window) + 1) // 2
                  + max(0, s - window) * window)
@@ -672,12 +743,31 @@ def check_k4_local(torch):
         nbytes = (2 * 10 + 2 * 1) * s * 256 * 2
         bnd, by = bound(nbytes, flops, 989e12)
         print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = 3e-2); "
-              f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
-              f"{'n/a (windowed)' if lib is None else f'{lib * 1e3:.1f} us'}"
-              f", bound {bnd * 1e3:.2f} us ({by}, {flops / 1e9:.2f} GFLOP)")
+              f"kernel {ms * 1e3:.1f} us (turns {turns[0] * 1e3:.1f}/"
+              f"{turns[3] * 1e3:.1f}), sdpa{' (mask)' if s > window else ''}"
+              f" {lib * 1e3:.1f} us (turns {turns[1] * 1e3:.1f}/"
+              f"{turns[2] * 1e3:.1f}), plain {plain * 1e3:.1f} us, bound "
+              f"{bnd * 1e3:.2f} us ({by}, {flops / 1e9:.2f} GFLOP; kernel "
+              f"at {100 * bnd / ms:.1f}% of it, sdpa {100 * bnd / lib:.1f}%)")
         rows[s] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                        bound_by=by, library_ms=lib)
     return rows
+
+
+def report_k4_plan(logs):
+    """ptxas's registers, spills and shared memory per head dim of the
+    bf16 kernel, beside its plan."""
+    from repro_torch.kernels import flash_attention as fa
+    rows = ptxas_by_head_dim(logs.get("flash_attention", ""))
+    if sorted(rows) != sorted(fa.PLAN):
+        raise SystemExit(f"[k4] ptxas reported head dims {sorted(rows)}, "
+                         f"expected {sorted(fa.PLAN)}")
+    for d, (regs, st, ld) in sorted(rows.items()):
+        block_n, stages = fa.PLAN[d]
+        print(f"[k4] ptxas D={d}: {regs} registers a thread at entry "
+              f"(setmaxnreg: producer 24, consumers 240), spill stores "
+              f"{st} B, loads {ld} B; shared memory {fa.smem_bytes(d)} B, "
+              f"all dynamic (key tile {block_n}, {stages} stages)")
 
 
 def check_k2(torch):
@@ -758,7 +848,7 @@ def check_k3(torch):
 
 # ---------------------------------------------------------- phases 7 and 8
 #: The device kernel's name (as the profiler lists it) per wrapper module.
-DEVICE_KERNEL = {"repro_torch.kernels.flash_attention": "flash_bf16_kernel",
+DEVICE_KERNEL = {"repro_torch.kernels.flash_attention": "flash_wgmma_kernel",
                  "repro_torch.kernels.wkv6": "wkv_kernel",
                  "repro_torch.kernels.rglru": "rglru_kernel"}
 
@@ -935,7 +1025,7 @@ def main() -> int:
     print(f"[card] {card_line()}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    build_kernels()
+    logs = build_kernels()
     engine = DrainEngine(backend="cuda", device="cuda")
     snapshot = polaris_snapshot(engine)
     k1 = kernel_vs_plain(torch, engine, snapshot)
@@ -943,6 +1033,7 @@ def main() -> int:
     launches, mirrors = polaris_cycles(torch, engine, pe)
     profile_cycle(torch, engine, snapshot)
     k1s_launches, k1s = check_k1_shared(torch, snapshot, mirrors)
+    report_k4_plan(logs)
     k4 = check_k4(torch)
     k4_local = check_k4_local(torch)
     k3 = check_k3(torch)

@@ -160,3 +160,98 @@ def test_update_cache_matches_jax(index):
     assert out[0] is tk and out[1] is tv          # written in place
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def _strided(shape, index, dtype=torch.bfloat16):
+    """A view ``base[index]`` of a fresh (B, S, H, D)-ordered tensor,
+    returned as (B, H, S, D)."""
+    return torch.zeros(shape, dtype=dtype)[index].transpose(1, 2)
+
+
+@pytest.mark.parametrize("name,t,ready", [
+    ("contiguous", torch.zeros((2, 4, 100, 64), dtype=torch.bfloat16), True),
+    ("projection view", _strided((2, 100, 4, 64), slice(None)), True),
+    ("fused qkv slice", _strided((2, 100, 12, 64),
+                                 (slice(None), slice(None), slice(4, 8))),
+     True),
+    ("head dim strided", torch.zeros((1, 2, 8, 128),
+                                     dtype=torch.bfloat16)[..., ::2], False),
+    ("rows 120 bytes apart", _strided((1, 10, 4, 60),
+                                      (Ellipsis, slice(0, 56))), False),
+    ("base off 16 bytes", torch.zeros((1, 2, 8, 72),
+                                      dtype=torch.bfloat16)[..., 4:68],
+     False),
+    ("expanded kv heads", torch.zeros((1, 1, 8, 64),
+                                      dtype=torch.bfloat16).expand(
+                                          1, 4, 8, 64), False),
+    ("stride 0 on a dim of 1", torch.zeros((1, 4, 8, 64),
+                                           dtype=torch.bfloat16).expand(
+                                               1, 4, 8, 64).as_strided(
+                                                   (1, 4, 8, 64),
+                                                   (0, 512, 64, 1)), True),
+    ("float32 rows of 16 bytes", torch.zeros((1, 2, 8, 4)), True),
+])
+def test_flash_wrapper_tma_alignment(name, t, ready):
+    """The rule for handing a tensor to the kernel's TMA maps in place:
+    head dim contiguous, base 16-byte aligned, strides multiples of 16
+    bytes and nonzero where the dim has more than one entry; anything
+    else is copied to a contiguous tensor, which passes."""
+    assert fa.tma_ready(t) == ready, name
+    got = fa._aligned(t)
+    assert (got is t) == ready
+    assert fa.tma_ready(got) and torch.equal(got, t)
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.bfloat16, 32, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 256, True),
+    (torch.bfloat16, 96, False), (torch.bfloat16, 512, False),
+    (torch.float32, 32, True), (torch.float32, 128, True),
+    (torch.float32, 256, False), (torch.float32, 16, False)])
+def test_flash_wrapper_head_dim_table(dtype, d, ok):
+    """The head dims each dtype takes (float32 stops at 128; the bf16
+    kernel has a plan for each of its own), and the error for the
+    others."""
+    assert (d in fa.HEAD_DIMS[dtype]) == ok
+    q = torch.zeros((1, 4, 8, d), dtype=dtype)
+    k = torch.zeros((1, 2, 8, d), dtype=dtype)
+    if ok:
+        fa.check_inputs(q, k, k)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.check_inputs(q, k, k)
+    assert sorted(fa.PLAN) == sorted(fa.HEAD_DIMS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("q_shape,k_shape,v_shape,dtypes,error", [
+    ((1, 4, 8, 64), (1, 3, 8, 64), (1, 3, 8, 64), None, ValueError),
+    ((1, 4, 8, 64), (2, 2, 8, 64), (2, 2, 8, 64), None, ValueError),
+    ((1, 4, 8, 64), (1, 2, 8, 32), (1, 2, 8, 32), None, ValueError),
+    ((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 9, 64), None, ValueError),
+    ((4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 64), None, ValueError),
+    ((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 64),
+     (torch.float16,) * 3, TypeError),
+    ((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 64),
+     (torch.bfloat16, torch.float32, torch.bfloat16), TypeError)],
+    ids=["heads", "batch", "head-dim", "v-shape", "rank", "float16",
+         "mixed"])
+def test_flash_wrapper_refuses(q_shape, k_shape, v_shape, dtypes, error):
+    """Shapes and dtypes the kernel refuses raise before any launch."""
+    dq, dk, dv = dtypes or (torch.bfloat16,) * 3
+    with pytest.raises(error, match="flash_attention"):
+        fa.check_inputs(torch.zeros(q_shape, dtype=dq),
+                        torch.zeros(k_shape, dtype=dk),
+                        torch.zeros(v_shape, dtype=dv))
+
+
+@pytest.mark.parametrize("d,block_n,stages,nbytes", [
+    (32, 128, 3, 58624), (64, 128, 3, 115968), (128, 128, 2, 165120),
+    (256, 64, 2, 197888)])
+def test_flash_plan_fits_shared_memory(d, block_n, stages, nbytes):
+    """The bf16 kernel's plan per head dim (key tile, ring stages) and
+    its shared memory, which must fit the 227 KB a block may use; the
+    key tile is a multiple of wgmma's 16-key step and the Q tile two
+    warpgroups of 64 rows."""
+    assert fa.PLAN[d] == (block_n, stages)
+    assert fa.smem_bytes(d) == nbytes <= fa.SMEM_LIMIT == 227 * 1024
+    assert block_n % 16 == 0 and fa.BLOCK_Q == 2 * 64

@@ -11,6 +11,10 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   layer (bf16, Hq 10, Hkv 1, D 256) with windows of 100 (not a multiple
   of the key tile, so a row's first tile can lie wholly outside its
   window) and 2048, at ragged S up to 3072, and the window in float32.
+  The bf16 kernel's edges: Sq and Sk of 127, 129 and 1000 (TMA's zero
+  fill of ragged tiles), B=2 with views of a fused QKV layout at every
+  head dim, GQA groups 1, 4 and 10, windows from 1 to 2048 at S up to
+  3072, and one ``LAUNCHES`` per call.
   Tolerance: float32 atol = rtol = 2e-5, bfloat16 3e-2 (JAX's own flash
   tests' tolerances).
 * K3 (``kernels.wkv6``) vs ``models.blocks_rnn.wkv_scan`` from a zero
@@ -68,6 +72,105 @@ def test_flash_attention_matches_plain_version(d, dtype, tol):
             assert got.dtype == dtype and got.shape == want.shape
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+
+
+def _bf16_views(gen, b, s, h, d, width=None):
+    """(B, H, S, D) bf16 views of a (B, S, width, D) projection: heads
+    [0, h) of it, so the head and sequence strides are the projection's
+    (``width`` > h leaves gaps, as a fused QKV projection does)."""
+    full = torch.randn((b, s, width or h, d), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    return full[:, :, :h].transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (64, 256))
+@pytest.mark.parametrize("sq,sk", [(127, 127), (129, 129), (1000, 1000),
+                                   (129, 127), (127, 1000), (1000, 129)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_ragged_lengths(d, sq, sk, causal):
+    """Sq and Sk off the 128-row query tile and the key tile: TMA's zero
+    fill of the ragged tiles, and the mask on them."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sq * 7 + sk + d)
+    q = _bf16_views(gen, 1, sq, 4, d)
+    k = _bf16_views(gen, 1, sk, 2, d)
+    v = _bf16_views(gen, 1, sk, 2, d)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = full_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (32, 64, 128, 256))
+def test_flash_attention_strided_batch(d):
+    """B=2, q/k/v as strided views of wider (B, S, H, D) projections (a
+    fused QKV layout), the output as the wrapper's transposed buffer."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(d + 2)
+    q = _bf16_views(gen, 2, 300, 4, d, width=8)
+    k = _bf16_views(gen, 2, 300, 2, d, width=6)
+    v = _bf16_views(gen, 2, 300, 2, d, width=6)
+    assert not q.is_contiguous() and fa.tma_ready(q) and fa.tma_ready(k)
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = full_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (64, 256))
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (10, 1)],
+                         ids=["group1", "group4", "group10"])
+def test_flash_attention_gqa_groups(d, hq, hkv):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(hq * 10 + hkv + d)
+    q = _bf16_views(gen, 1, 520, hq, d)
+    k = _bf16_views(gen, 1, 520, hkv, d)
+    v = _bf16_views(gen, 1, 520, hkv, d)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = full_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 63, 100, 200, 1000, 2048])
+@pytest.mark.parametrize("s", [129, 1000, 3072])
+def test_flash_attention_window_edges(window, s):
+    """D=256 (64-key tiles): windows that are and are not multiples of
+    the key tile, narrower and wider than a 128-row query tile."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(window + s)
+    q = _bf16_views(gen, 1, s, 10, 256)
+    k = _bf16_views(gen, 1, s, 1, 256)
+    v = _bf16_views(gen, 1, s, 1, 256)
+    got = fa.flash_attention(q, k, v, window=window)
+    want = full_attention(q, k, v, causal=True, local_window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_counts_each_launch():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = _bf16_views(gen, 1, 200, 4, 64)
+    k = _bf16_views(gen, 1, 200, 2, 64)
+    fa.LAUNCHES = 0
+    for n in range(1, 4):
+        fa.flash_attention(q, k, k, causal=n % 2 == 1)
+        assert fa.LAUNCHES == n
+    full_attention(q, k, k)
+    assert fa.LAUNCHES == 3
 
 
 @pytest.mark.cuda
