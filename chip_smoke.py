@@ -12,8 +12,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      source, all started together), with ptxas's report;
   2. K1 against its plain PyTorch version on the card, on the inputs of
      real-size passes (a Polaris-scale drain, forced end-time collisions,
-     ``limit < J``, the largest J): bitwise, plus its time per launch
-     beside the plain version's and the bound;
+     ``limit < J``, the largest J): bitwise, plus its time per launch on
+     the drain's first pass and its mean over the captured drain passes,
+     beside the plain version's and the bound, and per fork of those
+     passes R (running and just-started jobs) and n_cand (the ranks the
+     backfill walk decides);
   3. the paper's §4.1 co-simulation (``--trace paper``: 150 jobs, 32
      nodes, paper pool, ``score``) through ``twin_loop`` on ``cuda`` and
      on ``cpu``: same metric table, policy mix and per-cycle starts;
@@ -21,7 +24,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      table, ~100 running and ~600 queued, the k=32 DRAS sweep pool) fed
      through the event bus and ``SchedTwin.pump()``; then one more decide
      of that snapshot under ``torch.profiler`` (device busy share, kernels
-     per cycle, K1's device time);
+     per cycle, K1's device time and launches);
   5. K1' (the pass on one shared snapshot) through ``ops.twin_schedule_pass``
      on the six Polaris mirrors of phase 4 (k=32, J=1024) and on forced
      collisions: bitwise against its plain version, time and bound;
@@ -34,8 +37,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      of the C entry, timed in turns with ``scaled_dot_product_attention``:
      kernel, sdpa, sdpa, kernel) beside SDPA's, the plain version's and
      the bound;
-  7. K3 (WKV6) against its plain version at rwkv6-7b's prefill shapes
-     (B=1, H=64, N=64, S 1000 and 1024, f32), with times and bound;
+  7. K3 (WKV6, chunked: 16 steps a link of its serial chain, products
+     on the tensor cores in 3xTF32) against its plain version at
+     rwkv6-7b's prefill shapes (B=1, H=64, N=64, S 1000 and 1024, f32):
+     within atol = rtol = 2e-4, with times and bound;
   8. K2 (the RG-LRU scan) against its plain version at recurrentgemma-2b's
      prefill shape (B=1, W=2560, S 2048 and 3072, f32): bitwise, times
      and bound;
@@ -55,6 +60,20 @@ Phases (each prints its own lines; any failure exits non-zero):
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
+
+On request, before those two lines:
+
+  --parent DIR   K1 (the drain's first pass and the mean over the
+                 captured passes) and K3 (S=1000) built from the sources
+                 of the checkout at DIR (e.g. ``git archive`` of the
+                 parent commit, unpacked under ``build/``) against this
+                 tree's, on the same inputs, timed in turns: parent,
+                 change, change, parent;
+  --k1-phases    K1's time phase by phase in clocks: a copy of each
+                 source (this tree's; the parent's too with --parent)
+                 with clock64() stamps behind a barrier at each
+                 ``// ---- `` phase comment, built under ``build/``, run
+                 on the captured drain passes.
 """
 from __future__ import annotations
 
@@ -323,24 +342,104 @@ def kernel_vs_plain(torch, engine, snapshot):
                          200)
     plain_ms = time_ms(torch, lambda: schedule_pass_batched(*first), 10)
     ms2 = time_ms(torch, launch, 500)
+    drain_ms = time_ms(torch, drain_launches(torch, pe, drain_inputs),
+                       20) / len(drain_inputs)
     bound, bound_by = k1_bound_ms(torch, first)
     print(f"[k1] first pass of the drain (k=32, J={POLARIS_SLOTS}): kernel "
           f"{ms * 1e3:.2f} / {ms2 * 1e3:.2f} us per launch (back-to-back "
           f"launches of the C entry point), {wrapper_ms * 1e3:.2f} us per "
           f"call through the Python wrapper, plain {plain_ms:.3f} ms, "
-          f"bound {bound * 1e3:.3f} us ({bound_by})")
+          f"bound {bound * 1e3:.3f} us ({bound_by}; kernel at "
+          f"{100 * bound / min(ms, ms2):.2f}% of it); mean over the "
+          f"{len(drain_inputs)} captured drain passes "
+          f"{drain_ms * 1e3:.2f} us per launch")
+    print(f"[k1] captured drain passes, per fork: {pass_counts_line(torch, drain_inputs)}")
     return dict(max_abs_err=float(worst), ms=min(ms, ms2),
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                drain_mean_ms=drain_ms), drain_inputs
 
 
-def raw_launch(torch, pe, args, entry="policy_eval_pass_batched"):
-    """K1 (or K1', ``entry="policy_eval_pass"``) launched straight through
-    its C entry point on fixed buffers, so that back-to-back launches
-    time the kernel, not the wrapper's checks and allocations."""
+def drain_launches(torch, pe, inputs, fn=None):
+    """One launch of K1 (or ``fn``, a library's C entry of the same
+    signature) on each of ``inputs`` in turn."""
+    launches = [raw_launch(torch, pe, a, fn=fn) for a in inputs]
+
+    def run():
+        for launch in launches:
+            launch()
+    return run
+
+
+def pass_counts(torch, args):
+    """Per fork of one pass: R, the running and pass-1-started jobs with
+    a finite end, and n_cand, the ranks the backfill walk must decide
+    (queued after the head and below the limit, not started, fitting
+    the state before the walk).  -1 for both in a fork with no head.
+    Derived from the plain pass's rules."""
+    from repro_torch.core.backfill import _pass
+    from repro_torch.core.state import QUEUED, RUNNING
+    order, state, nodes, est, end_t, free0, now, limit = args
+    k, J = order.shape
+    idx = order.long()
+    ranks = torch.arange(J, device=order.device)
+    q_rank = torch.gather(state == QUEUED, 1, idx) & (
+        ranks < (J if limit is None else int(limit)))
+    nd_rank = torch.where(q_rank, torch.gather(nodes, 1, idx), 0)
+    need = torch.cumsum(nd_rank, 1)
+    started = q_rank & (need <= free0[:, None])
+    blocked = q_rank & ~started
+    has_head = blocked.any(1)
+    head_rank = torch.argmax(blocked.to(torch.int8), 1)
+    free1 = free0 - torch.where(started, nd_rank, 0).sum(1)
+    _, _, _, shadow = _pass(*args)
+    started_slot = torch.zeros_like(started).scatter(1, idx, started)
+    end_eff = torch.where(started_slot, now[:, None] + est,
+                          torch.where(state == RUNNING, end_t, torch.inf))
+    finite = end_eff < torch.inf
+    R = finite.sum(1)
+    # extra: cum over the (end, slot) order at the first feasible job
+    srt, perm = torch.sort(end_eff, dim=1, stable=True)
+    cum = free1[:, None] + torch.cumsum(torch.gather(
+        torch.where(finite, nodes, 0), 1, perm), 1)
+    head_nodes = torch.gather(nd_rank, 1, head_rank[:, None])[:, 0]
+    feas = (cum >= head_nodes[:, None]) & torch.isfinite(srt)
+    cum_first = torch.where(feas, cum, 2 ** 31).amin(1)
+    extra = torch.where(feas.any(1), cum_first - head_nodes, 0)
+    cond_a = now[:, None] + torch.gather(est, 1, idx) <= shadow[:, None]
+    cand = (blocked & (ranks > head_rank[:, None]) & (nd_rank <= free1[:, None])
+            & (cond_a | (nd_rank <= extra[:, None])))
+    n_cand = cand.sum(1)
+    return (torch.where(has_head, R, -1).tolist(),
+            torch.where(has_head, n_cand, -1).tolist())
+
+
+def pass_counts_line(torch, inputs):
+    import numpy as np
+    rs, cs = [], []
+    for a in inputs:
+        r, c = pass_counts(torch, a)
+        rs += [x for x in r if x >= 0]
+        cs += [x for x in c if x >= 0]
+    if not rs:
+        return "no fork has a head"
+    q = lambda v: (f"mean {np.mean(v):.1f}, p50 {np.median(v):.0f}, "  # noqa: E731
+                   f"p90 {np.percentile(v, 90):.0f}, max {max(v)}")
+    return (f"{len(rs)} forks with a head of {len(inputs) * inputs[0][0].shape[0]}: "
+            f"R {q(rs)}; n_cand {q(cs)}")
+
+
+def raw_launch(torch, pe, args, entry="policy_eval_pass_batched", fn=None,
+               out=None):
+    """K1 (or K1', ``entry="policy_eval_pass"``; or ``fn``, another
+    library's C entry of the same signature) launched straight through
+    its C entry point on fixed buffers (``out``: started, free), so that
+    back-to-back launches time the kernel, not the wrapper's checks and
+    allocations."""
     k, J = args[0].shape
-    started = torch.empty((k, J), dtype=torch.bool, device="cuda")
-    free = torch.empty((k,), dtype=torch.int32, device="cuda")
-    fn = pe._kernel(entry)
+    started, free = out if out is not None else (
+        torch.empty((k, J), dtype=torch.bool, device="cuda"),
+        torch.empty((k,), dtype=torch.int32, device="cuda"))
+    fn = fn or pe._kernel(entry)
     ptrs = [None if a is None else a.data_ptr() for a in args] + [
         started.data_ptr(), free.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
@@ -558,9 +657,13 @@ def traced(torch, fn, tag, what, kernel_keys):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    shares = ", ".join(
-        f"{key} {sum(e.device_time_total for e in prof.key_averages() if key in e.key) / 1e3:.2f} ms"
-        for key in kernel_keys)
+    def share(key):
+        evs = [e for e in prof.key_averages() if key in e.key]
+        total = sum(e.device_time_total for e in evs)
+        count = sum(e.count for e in evs)
+        each = f", {total / count:.2f} us each" if count else ""
+        return f"{key} {total / 1e3:.2f} ms in {count} launches{each}"
+    shares = ", ".join(share(key) for key in kernel_keys)
     print(f"{tag} {what}: untraced {untraced * 1e3:.1f} ms; traced "
           f"{wall * 1e3:.1f} ms with {len(spans)} device kernels, device "
           f"busy {busy / 1e3:.1f} ms ({100.0 * busy / (wall * 1e6):.1f}% "
@@ -1010,6 +1113,190 @@ def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, keys):
                tag, f"decode step of {slots} slots", keys)
 
 
+# ------------------------------------------------- on request: --parent
+def read(path):
+    with open(path) as f:
+        return f.read()
+
+
+def build_other(name, text, tag):
+    """Build a kernel's CUDA source ``text`` (another tree's, or an
+    instrumented copy) with the port's nvcc flags into ``build/<tag>/``
+    and load it; the port's own libraries are untouched."""
+    import ctypes
+    from repro_torch.kernels import build
+    out_dir = os.path.join(ROOT, "build", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, f"{name}.cu")
+    with open(cu, "w") as f:
+        f.write(text)
+    so = os.path.join(out_dir, f"{name}.so")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
+                   check=True, timeout=600)
+    return ctypes.CDLL(so)
+
+
+def k3_raw_launch(torch, fn, r, k, v, w, u):
+    """K3's C entry (``fn``) on fixed output buffers."""
+    b, s, h, n = r.shape
+    y = torch.empty_like(r)
+    st = torch.empty((b, h, n, n), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (r, k, v, w, u, y, st)]
+
+    def launch():
+        if fn(*ptrs, b, s, h, n, stream) != 0:
+            raise SystemExit("[k3] launch failed")
+    return launch, y, st
+
+
+def compare_parent(torch, parent, drain_inputs):
+    """K1 (first drain pass, and the mean over the captured drain) and K3
+    (rwkv6-7b, S=1000) of the checkout at ``parent`` against this tree's,
+    built from each tree's source, on the same inputs, timed in turns:
+    parent, change, change, parent.  Also checks that both give the same
+    K1 answers and K3 within 2e-4 of each other."""
+    import ctypes
+    from repro_torch.kernels import policy_eval as pe
+    from repro_torch.kernels import wkv6 as wk
+    csrc = os.path.join(parent, "src", "repro_torch", "csrc")
+    old_pe = build_other("policy_eval",
+                         read(os.path.join(csrc, "policy_eval.cu")),
+                         "parent").policy_eval_pass_batched
+    old_pe.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    old_wk = build_other("wkv6", read(os.path.join(csrc, "wkv6.cu")),
+                         "parent").wkv6_fwd
+    old_wk.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    first = drain_inputs[0]
+    k, J = first[0].shape
+    outs = [(torch.empty((k, J), dtype=torch.bool, device="cuda"),
+             torch.empty((k,), dtype=torch.int32, device="cuda"))
+            for _ in range(2)]
+    pair = [raw_launch(torch, pe, first, fn=old_pe, out=outs[0]),
+            raw_launch(torch, pe, first, out=outs[1])]
+    for launch in pair:
+        launch()
+    torch.cuda.synchronize()
+    if not (torch.equal(*[o[0] for o in outs])
+            and torch.equal(*[o[1] for o in outs])):
+        raise SystemExit("[parent] K1 of the parent and of this tree differ")
+    drains = [drain_launches(torch, pe, drain_inputs, fn=old_pe),
+              drain_launches(torch, pe, drain_inputs)]
+    for what, fns, n, per in (("K1 first drain pass", pair, 500, 1),
+                              (f"K1 mean over {len(drain_inputs)} drain "
+                               f"passes", drains, 20, len(drain_inputs))):
+        turns = [time_median_ms(torch, fns[i], n) / per for i in (0, 1, 1, 0)]
+        print(f"[parent] {what} (k={k}, J={J}): parent "
+              f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, this tree "
+              f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us per launch "
+              f"(turns parent, change, change, parent)")
+    r, k_, v, w, u = wkv_inputs(torch, 1000, seed=1000)
+    old_l, y0, s0 = k3_raw_launch(torch, old_wk, r, k_, v, w, u)
+    new_l, y1, s1 = k3_raw_launch(torch, wk._kernel(), r, k_, v, w, u)
+    old_l()
+    new_l()
+    torch.cuda.synchronize()
+    err = max(worst_excess(y1, y0, 2e-4)[0], worst_excess(s1, s0, 2e-4)[0])
+    turns = [time_median_ms(torch, (old_l, new_l)[i], 10)
+             for i in (0, 1, 1, 0)]
+    print(f"[parent] K3 (B=1, H=64, N=64, S=1000, f32): parent "
+          f"{turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us, this tree "
+          f"{turns[1] * 1e3:.1f} / {turns[2] * 1e3:.1f} us per launch "
+          f"(turns parent, change, change, parent); max abs difference "
+          f"{err:.3g}")
+
+
+# --------------------------------------------- on request: --k1-phases
+def instrument_k1(text):
+    """A copy of a K1 source with clock64() stamps: at the kernel's entry,
+    behind a block barrier before each ``// ---- `` phase comment in
+    ``pass_kernel``, before its write-out loop and at its end, into a
+    device array read by an added C entry.  The barriers are added ones;
+    each phase is named by its comment."""
+    import re
+    start = text.index("pass_kernel(")
+    body = text.index("{", text.index(") {", start))
+    depth, end = 0, body
+    for end in range(body, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[end], 0)
+        if depth == 0:
+            break
+    lines = text[body + 1:end].split("\n")
+    names, out = ["entry"], []
+    stamp = ("__syncthreads(); if (threadIdx.x == 0) "
+             "k1_stamps[blockIdx.x * 16 + {}] = clock64();")
+    last_out = max(i for i, ln in enumerate(lines) if "started_out[" in ln)
+    write_at = max(i for i in range(last_out) if re.match(
+        r"^  (if|for) \(", lines[i]))
+    for i, ln in enumerate(lines):
+        m = re.search(r"// ---- (.*?)[:-]* *-*$", ln)
+        if m or i == write_at:
+            label = re.split(r"[:=]", m.group(1))[0] if m else "write-out"
+            names.append("walk" if m and "walk" in m.group(1)
+                         else " ".join(label.split()[:3]).strip(" +"))
+            out.append(stamp.format(len(names) - 1))
+        out.append(ln)
+    names.append("end")
+    out.append(stamp.format(len(names) - 1))
+    head = ("\n  if (threadIdx.x == 0) k1_stamps[blockIdx.x * 16] = "
+            "clock64();")
+    text = (text[:start] + text[start:body + 1] + head + "\n".join(out)
+            + text[end:])
+    decl = "__device__ long long k1_stamps[64 * 16];\n"
+    text = text.replace("namespace {", "namespace {\n" + decl, 1)
+    return text, names
+
+
+def k1_phases(torch, drain_inputs):
+    """Each phase of K1 in clocks, from an instrumented copy of each
+    source (this tree's, and the parent's with ``--parent``) built into
+    ``build/``, on the captured drain passes: the first pass's slowest
+    block, and the mean over the passes of each pass's slowest block."""
+    import ctypes
+    import numpy as np
+    from repro_torch.kernels import policy_eval as pe
+    sources = {"this tree": os.path.join(ROOT, "src", "repro_torch", "csrc",
+                                         "policy_eval.cu")}
+    if "--parent" in sys.argv:
+        sources["parent"] = os.path.join(
+            sys.argv[sys.argv.index("--parent") + 1], "src", "repro_torch",
+            "csrc", "policy_eval.cu")
+    reader = ('\nextern "C" int k1_read_stamps(void* dst, int clear) {\n'
+              '  cudaError_t e = cudaMemcpyFromSymbol(dst, k1_stamps, '
+              'sizeof(k1_stamps));\n'
+              '  if (clear) { static long long z[64 * 16]; '
+              'e = cudaMemcpyToSymbol(k1_stamps, z, sizeof(z)); }\n'
+              '  return (int)e;\n}\n')
+    for tag, src in sources.items():
+        text, names = instrument_k1(read(src))
+        lib = build_other(tag.split()[0], text + reader, "k1_phases")
+        fn = lib.policy_eval_pass_batched
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.k1_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        host = np.zeros(64 * 16, np.int64)
+        per = []
+        for a in drain_inputs:
+            launch = raw_launch(torch, pe, a, fn=fn)
+            for _ in range(3):                 # warm; keep the last
+                lib.k1_read_stamps(host.ctypes.data, 1)
+                launch()
+                torch.cuda.synchronize()
+            lib.k1_read_stamps(host.ctypes.data, 1)
+            st = host.reshape(64, 16)[:a[0].shape[0], :len(names)].copy()
+            for c in range(1, len(names)):     # a phase not reached
+                st[:, c] = np.where(st[:, c] == 0, st[:, c - 1], st[:, c])
+            per.append(np.diff(st, axis=1).max(0))
+        per = np.array(per)
+        cells = ", ".join(f"{nm} {per[0][i]} / {per[:, i].mean():.0f}"
+                          for i, nm in enumerate(names[:-1]))
+        print(f"[k1 phases] {tag}: clocks of the slowest block, first pass "
+              f"/ mean over {len(per)} drain passes: {cells}; sum "
+              f"{per[0].sum()} / {per.sum(1).mean():.0f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1028,7 +1315,7 @@ def main() -> int:
     logs = build_kernels()
     engine = DrainEngine(backend="cuda", device="cuda")
     snapshot = polaris_snapshot(engine)
-    k1 = kernel_vs_plain(torch, engine, snapshot)
+    k1, drain_inputs = kernel_vs_plain(torch, engine, snapshot)
     check_cosim(pe)
     launches, mirrors = polaris_cycles(torch, engine, pe)
     profile_cycle(torch, engine, snapshot)
@@ -1045,6 +1332,11 @@ def main() -> int:
     rgemma = serve_phase(torch, "recurrentgemma-2b", {rg: 18, fa: 8},
                          n_req=4, slots=2, max_seq=4096, lo=256, hi=3072,
                          max_new=8, min_longest=2048)
+    if "--parent" in sys.argv:
+        compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
+                       drain_inputs)
+    if "--k1-phases" in sys.argv:
+        k1_phases(torch, drain_inputs)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     k4_err = max([k4["max_abs_err"]]
                  + [r["max_abs_err"] for r in k4_local.values()])

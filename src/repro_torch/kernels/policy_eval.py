@@ -33,7 +33,7 @@ LAUNCHES = 0
 SHARED_LAUNCHES = 0
 
 #: The largest job-table capacity J the kernel takes (``kMaxJ`` in the
-#: source: 29 bytes of shared memory per slot).
+#: source: 25 bytes of shared memory per slot).
 MAX_J = 4096
 
 _FNS = {}

@@ -1,12 +1,16 @@
 """Recurrent blocks: port of ``repro/models/blocks_rnn.py``, both halves:
 RWKV6 "Finch" (time mix, channel mix, the WKV6 recurrence) and the
 RG-LRU of RecurrentGemma / Griffin (the recurrent block, its depthwise
-causal conv and the GeGLU MLP).  ``wkv_chunked`` is not ported (no
-caller on any path; ROADMAP A11).
+causal conv and the GeGLU MLP).
 
 ``wkv_scan`` is the WKV6 recurrence over a sequence, one ``wkv_step``
 per token: the plain version of K3, the CUDA kernel
 (``repro_torch.kernels.wkv6``) that prefill runs on CUDA tensors.
+``wkv_chunked`` is the same recurrence a chunk of steps at a time, as
+matrix products (no serving path calls it).  K3 runs the same chunk
+algebra with its decays as products of w over step ranges instead of
+exponentials of log-decay differences, which keep f32 precision where
+cumulative log-decays grow large.
 ``rglru_scan`` is the RG-LRU recurrence, one ``a_t * h + x_t`` per
 token: the plain version of K2 (``repro_torch.kernels.rglru``), which
 RG-LRU prefill runs on CUDA tensors.  Decode stays one plain step in
@@ -107,6 +111,62 @@ def wkv_scan(state: torch.Tensor, r, k, v, w, u
         state, y = wkv_step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
         ys.append(y)
     return state, torch.stack(ys, dim=1)
+
+
+WKV_CHUNK = 32   # chunked-formulation block length
+
+
+def wkv_chunked(state: torch.Tensor, r, k, v, w, u,
+                chunk: int = WKV_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6: the recurrence of ``wkv_scan``, ``chunk`` steps at a
+    time.  Within a chunk, with L_t = sum_{tau<=t} log w_tau (w clamped
+    at 1e-30, so L is finite) and L_{-1} = 0:
+
+      y_t = (r_t . e^{L_{t-1}}) @ S_0                       (inter-chunk)
+          + sum_{s<t} [sum_i r_t k_s e^{L_{t-1}-L_s}] v_s   (intra-chunk)
+          + (r_t . u . k_t) v_t                             (bonus)
+      S'  = e^{L_{C-1}} . S_0 + (k . e^{L_{C-1}-L})^T @ V
+
+    Every exponent is of a non-positive quantity, so every factor lies in
+    [0, 1] (the factored r*P and k/P form overflows).  Port of the JAX
+    package's ``wkv_chunked``, which falls back to ``wkv_scan`` when
+    ``chunk`` does not divide S; this one pads the last chunk instead
+    with r = k = v = 0 and w = 1 (a zero log-decay), as K3 does.
+
+    r/k/v/w: (B, S, H, N) f32; u: (H, N); state: (B, H, N, N).  Returns
+    (final_state, y (B, S, H, N)), as ``wkv_scan``."""
+    b, s, h, n = r.shape
+    chunk = min(chunk, s)
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def to_chunks(x, fill):
+        x = F.pad(x, (0, 0, 0, 0, 0, pad), value=fill)
+        return x.reshape(b, nc, chunk, h, n).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc = (to_chunks(x, 0.0) for x in (r, k, v))
+    log_w = torch.log(torch.clamp_min(to_chunks(w, 1.0), 1e-30))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)
+    ys = []
+    for rt, kt, vt, lw in zip(rc, kc, vc, log_w):      # (B, H, C, N) each
+        L = torch.cumsum(lw, dim=2)
+        L_prev = L - lw
+        y_inter = torch.einsum("bhtn,bhnm->bhtm", rt * torch.exp(L_prev),
+                               state)
+        diff = L_prev[:, :, :, None, :] - L[:, :, None, :, :]
+        D = torch.where(tri[None, None, :, :, None],
+                        torch.exp(torch.clamp_max(diff, 0.0)), 0.0)
+        A = torch.einsum("bhtn,bhsn,bhtsn->bhts", rt, kt, D)
+        bonus = torch.sum(rt * u[None, :, None, :] * kt, dim=-1)
+        y_intra = torch.einsum("bhts,bhsm->bhtm", A, vt) \
+            + bonus[..., None] * vt
+        decay_to_end = torch.exp(L[:, :, -1:, :] - L)
+        state = torch.exp(L[:, :, -1, :])[..., None] * state + torch.einsum(
+            "bhsn,bhsm->bhnm", kt * decay_to_end, vt)
+        ys.append(y_inter + y_intra)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, nc * chunk, h, n)
+    return state, y[:, :s]
 
 
 def _token_shift(x: torch.Tensor, cache: Cache, key: str,

@@ -1,4 +1,4 @@
-"""K1', K2, K3 and K4 against their plain versions on a CUDA card.  Every test is marked ``cuda`` and skips on a host without
+"""K1, K1', K2, K3 and K4 against their plain versions on a CUDA card.  Every test is marked ``cuda`` and skips on a host without
 one: a CUDA kernel has no CPU mode.  This file imports neither JAX nor
 the JAX package, so that it runs on the GPU machine, which has no JAX:
 
@@ -23,9 +23,24 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
 * K2 (``kernels.rglru``) vs ``models.blocks_rnn.rglru_scan``: zero and
   nonzero h0, ragged S and W, recurrentgemma's width.  Bitwise: both
   round the product and the sum apart.
+* K3 at B = 2 for every head size and S of 1, 7, 16, 17 and 1000 (one
+  step, less than a chunk, one chunk, a chunk and one step, a short
+  tail chunk), with w holding exact zeros and exact ones, and with w
+  made as ``rwkv_time_mix`` makes it, exp(-exp(x)), x spread from exact
+  1.0 to exact 0.  Same tolerance.
 * K1' (``kernels.policy_eval.policy_eval_pass``) vs its plain version,
   the batched pass on the shared rows expanded to k, at k = 32 and
   J = 1024 and at the largest J.  Bitwise (integers).
+* K1 (``kernels.policy_eval.policy_eval_pass_batched``) vs its plain
+  version, ``core.backfill.schedule_pass_batched``, on forks built to
+  steer the warp-parallel backfill walk: more than 32 candidates,
+  rejections at the first lane of a round, at the last, and in every
+  lane, a candidate that passes the pre-test and fails once earlier
+  lanes start, candidates bounded by ``extra``; C1's forced end-time
+  ties; ``limit < J``; J not a multiple of 32 or 256; every rows-per-
+  thread layout up to J = 4096 (k = 1), rows that are not 16-byte
+  aligned; no head and an empty queue; K1' on the same shared rows.
+  Bitwise.
 """
 import numpy as np
 import pytest
@@ -36,6 +51,7 @@ from repro_torch.kernels import policy_eval as pe
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.attention import full_attention
+from repro_torch.core.backfill import schedule_pass_batched
 from repro_torch.models.blocks_rnn import rglru_scan, wkv_scan
 
 
@@ -268,4 +284,205 @@ def test_shared_pass_matches_plain_version():
         s_p, f_p = pe.shared_pass_plain(*args)
         torch.cuda.synchronize()
         assert pe.SHARED_LAUNCHES == launches + 1
+        assert torch.equal(s_k, s_p) and torch.equal(f_k, f_p)
+
+
+def _wkv_case(b, s, h, n, seed, w_kind):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, n)).astype(np.float32)).cuda() for _ in range(3))
+    if w_kind == "model":
+        # rwkv_time_mix's decay: from exact 1.0 (x < ~-17) to exact 0
+        # (x > ~4.5)
+        x = torch.from_numpy(rng.uniform(-30.0, 6.0, (b, s, h, n)).astype(
+            np.float32)).cuda()
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.sigmoid(torch.from_numpy(rng.standard_normal(
+            (b, s, h, n)).astype(np.float32))).cuda()
+        pick = torch.from_numpy(rng.random((b, s, h, n))).cuda()
+        w = torch.where(pick < 0.15, 0.0, torch.where(pick > 0.85, 1.0, w))
+    u = torch.from_numpy(rng.standard_normal((h, n)).astype(
+        np.float32)).cuda()
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_kind", ["zeros_ones", "model"])
+@pytest.mark.parametrize("s", (1, 7, 16, 17, 1000))
+@pytest.mark.parametrize("n", wk.HEAD_SIZES)
+def test_wkv6_chunks_and_extreme_decays(n, s, w_kind):
+    _card()
+    r, k, v, w, u = _wkv_case(2, s, 3, n, seed=n * s, w_kind=w_kind)
+    assert (w == 0.0).any() and (w == 1.0).any()
+    launches = wk.LAUNCHES
+    y, st = wk.wkv6(r, k, v, w, u)
+    st_ref, y_ref = wkv_scan(torch.zeros((2, 3, n, n), device="cuda"),
+                             r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES == launches + 1
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, st_ref, atol=2e-4, rtol=2e-4)
+
+
+# ---- K1's backfill walk -------------------------------------------------
+QUEUED, RUNNING = 1, 2
+
+#: C1's forced end-time tie (tests/test_torch_backfill.py::C1_STATE) and
+#: two more of that file's tie states, as (total, running, queued).
+TIE_FORKS = [
+    (10, [(4, 100.0), (4, 100.0)], [(5, 50.0), (2, 1000.0)]),
+    (12, [(3, 50.0), (3, 50.0), (3, 50.0)],
+     [(7, 10.0), (2, 500.0), (1, 20.0), (2, 60.0)]),
+    (9, [(3, 80.0), (3, 80.0), (2, 120.0)],
+     [(4, 5.0), (1, 80.0), (1, 81.0), (1, 400.0)]),
+]
+
+
+def _fork(J, free0, running, queued, now=0.0):
+    """One fork's rows: running jobs [(nodes, end)] in the first slots,
+    queued jobs [(nodes, est)] after them, ranked in that order; the
+    order lists the queued slots first, then every other slot."""
+    state = np.zeros(J, np.int32)
+    nodes = np.zeros(J, np.int32)
+    est = np.full(J, 3600.0, np.float32)
+    end = np.full(J, np.inf, np.float32)
+    for s, (nd, e) in enumerate(running):
+        state[s], nodes[s], end[s] = RUNNING, nd, e
+    q0 = len(running)
+    for c, (nd, e) in enumerate(queued):
+        state[q0 + c], nodes[q0 + c], est[q0 + c] = QUEUED, nd, e
+    q = list(range(q0, q0 + len(queued)))
+    order = np.array(q + list(range(q0)) + list(range(q0 + len(q), J)),
+                     np.int32)
+    return order, state, nodes, est, end, free0, now
+
+
+def _walk_forks():
+    """Forks whose head blocks at rank 0, so that rank 1 + l is lane l of
+    the walk's first round (the shadow comes from one running job)."""
+    a, b = 10.0, 500.0          # est: cond_a holds / fails (shadow 100)
+    forks = {
+        # 6 + 6 > 10: lane 1 passes the pre-test, fails the scan; then
+        # every later lane, 69 candidates over three rounds, is rejected
+        "every_lane": (10, [(4, 100.0)], [(11, 50.0)] + [(6, a)] * 70),
+        # alternating large cond_a and small extra-bound jobs
+        "alternating": (20, [(10, 100.0)],
+                        [(25, 50.0)] + [(15, a), (1, b)] * 30),
+        # lanes 0..30 fit, lane 31 tips over; 4 more start in round 2
+        "last_lane": (35, [(10, 100.0)],
+                      [(40, 50.0)] + [(1, a)] * 31 + [(5, a)]
+                      + [(1, a)] * 32),
+        # round 1 takes 32 of 33 nodes; lane 0 of round 2 no longer fits
+        "first_lane": (33, [(10, 100.0)],
+                       [(40, 50.0)] + [(1, a)] * 32 + [(2, a)]
+                       + [(1, a)] * 31),
+        # extra (6) bounds the !cond_a jobs, free (10) the others
+        "extra_bound": (10, [(8, 100.0)],
+                        [(12, 50.0)] + [(2, b), (1, a)] * 30),
+        "no_head": (64, [(4, 10.0)], [(2, 5.0)] * 20),
+        "empty_queue": (8, [(4, 10.0), (2, 10.0)], []),
+    }
+    forks.update({f"tie_{i}": (total - sum(n for n, _ in run), run, q)
+                  for i, (total, run, q) in enumerate(TIE_FORKS)})
+    return forks
+
+
+def _stack(forks, J, limit=None, offset=0):
+    """(k, J) pass inputs on the card from ``_fork`` rows; ``offset``
+    shifts every row array off a 16-byte boundary."""
+    cols = list(zip(*forks))
+
+    def dev(rows, dtype):
+        a = np.stack(rows).astype(dtype)
+        buf = torch.empty(a.size + offset, dtype=torch.from_numpy(a).dtype,
+                          device="cuda")
+        t = buf[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+    order, state, nodes, est, end = (
+        dev(cols[0], np.int32), dev(cols[1], np.int32),
+        dev(cols[2], np.int32), dev(cols[3], np.float32),
+        dev(cols[4], np.float32))
+    free0 = torch.tensor(cols[5], dtype=torch.int32, device="cuda")
+    now = torch.tensor(cols[6], dtype=torch.float32, device="cuda")
+    lim = (None if limit is None
+           else torch.tensor([limit], dtype=torch.int32, device="cuda"))
+    return order, state, nodes, est, end, free0, now, lim
+
+
+def _assert_k1(args):
+    launches = pe.LAUNCHES
+    s_k, f_k = pe.policy_eval_pass_batched(*args)
+    s_p, f_p = schedule_pass_batched(*args)
+    torch.cuda.synchronize()
+    assert pe.LAUNCHES == launches + 1
+    assert torch.equal(s_k, s_p) and torch.equal(f_k, f_p)
+    return s_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", (77, 96, 1000, 1024, 1500, 2050, 4096))
+def test_pass_walk_forks(J):
+    _card()
+    forks = _walk_forks()
+    rows = [_fork(J, free0, run, q) for free0, run, q in forks.values()]
+    started = _assert_k1(_stack(rows, J)).cpu()
+    names = list(forks)
+    # the walk's outcomes the forks were built for (plain version's)
+    got = {n: int(started[i].sum()) for i, n in enumerate(names)}
+    assert got["every_lane"] == 1 and got["last_lane"] == 31 + 4
+    assert got["first_lane"] == 32 + 1 and got["no_head"] == 20
+    assert got["empty_queue"] == 0
+    # misaligned rows take the kernel's scalar loads: same answers
+    _assert_k1(_stack(rows, J, offset=1))
+    # limit < J: a rank limit that cuts the candidates
+    _assert_k1(_stack(rows, J, limit=40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,J,seed", [(1, pe.MAX_J, 0), (64, 96, 1),
+                                      (64, 1000, 2), (32, 1024, 3),
+                                      (16, 3001, 4)])
+def test_pass_tight_random_forks(k, J, seed):
+    """Random forks with small jobs and tight free nodes: many candidates
+    per fork, most rejected by the walk, with shadow-time ties."""
+    _card()
+    rng = np.random.default_rng(seed)
+    forks = []
+    for _ in range(k):
+        n_run = int(rng.integers(0, min(J // 4, 200)))
+        n_q = int(rng.integers(0, J - n_run))
+        run = [(int(rng.integers(1, 8)), float(rng.integers(1, 6) * 600))
+               for _ in range(n_run)]
+        q = [(int(rng.integers(1, 8)), float(rng.integers(1, 8) * 600))
+             for _ in range(n_q)]
+        forks.append(_fork(J, int(rng.integers(0, 40)), run, q,
+                           now=float(rng.integers(0, 2) * 600)))
+    _assert_k1(_stack(forks, J))
+    _assert_k1(_stack(forks, J, limit=J // 3))
+
+
+@pytest.mark.cuda
+def test_shared_pass_walk_forks():
+    """K1' on the shared rows of each walk fork, k = 8 orders: the
+    fork's own and seven random shuffles of its queued ranks."""
+    _card()
+    J = 200
+    rng = np.random.default_rng(0)
+    for free0, run, q in _walk_forks().values():
+        order, state, nodes, est, end, f0, now = _fork(J, free0, run, q)
+        nq = len(q)
+        orders = [order] + [np.concatenate([rng.permutation(order[:nq]),
+                                            order[nq:]]) for _ in range(7)]
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+        args = (dev(np.stack(orders)), dev(state), dev(nodes), dev(est),
+                dev(end), torch.tensor([f0], dtype=torch.int32,
+                                       device="cuda"),
+                torch.tensor([now], dtype=torch.float32, device="cuda"),
+                None)
+        s_k, f_k = pe.policy_eval_pass(*args)
+        s_p, f_p = pe.shared_pass_plain(*args)
+        torch.cuda.synchronize()
         assert torch.equal(s_k, s_p) and torch.equal(f_k, f_p)
