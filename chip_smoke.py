@@ -41,9 +41,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      on the tensor cores in 3xTF32) against its plain version at
      rwkv6-7b's prefill shapes (B=1, H=64, N=64, S 1000 and 1024, f32):
      within atol = rtol = 2e-4, with times and bound;
-  8. K2 (the RG-LRU scan) against its plain version at recurrentgemma-2b's
-     prefill shape (B=1, W=2560, S 2048 and 3072, f32): bitwise, times
-     and bound;
+  8. K2 (the RG-LRU scan), both entries, at recurrentgemma-2b's prefill
+     shape (B=1, W=2560, S 2048 and 3072): ``rglru`` (f32) against
+     ``rglru_scan`` and the gated entry (the layer between its matrix
+     products, bf16, extreme gate inputs included) against
+     ``rglru_gated_scan``, bitwise, with times, plain times and bounds;
+     then the gated entry at a decode step (B=2, S=1, h in place);
   9. llama3.2-1b at full width (random bf16 weights) served through
      ``ServingEngine``: 8 requests of 128-1024 prompt tokens, 4 slots,
      max_seq 2048, 16 new tokens each, with the kernels and then with
@@ -54,8 +57,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      tokens, 2 slots, max_seq 1024, 8 new tokens; K3 launches;
  11. recurrentgemma-2b at full width the same way: 4 requests of
      256-3072 tokens (one at least past the 2048-token window), 2 slots,
-     max_seq 4096, 8 new tokens; K2 (18 a prefill) and K4 (8 a prefill,
-     windowed, D=256) launches.
+     max_seq 4096, 8 new tokens; K2 (18 a prefill and 18 a decode step,
+     its gated entry) and K4 (8 a prefill, windowed, D=256) launches.
+     Each serving phase's profile counts PyTorch's elementwise kernels
+     in a prefill and a decode step.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -64,16 +69,23 @@ prints no result.
 On request, before those two lines:
 
   --parent DIR   K1 (the drain's first pass and the mean over the
-                 captured passes) and K3 (S=1000) built from the sources
-                 of the checkout at DIR (e.g. ``git archive`` of the
-                 parent commit, unpacked under ``build/``) against this
-                 tree's, on the same inputs, timed in turns: parent,
-                 change, change, parent;
+                 captured passes), K2's ``rglru`` (S=2048) and K3
+                 (S=1000) built from the sources of the checkout at DIR
+                 (e.g. ``git archive`` of the parent commit, unpacked
+                 under ``build/``) against this tree's, on the same
+                 inputs, timed in turns: parent, change, change, parent;
   --k1-phases    K1's time phase by phase in clocks: a copy of each
                  source (this tree's; the parent's too with --parent)
                  with clock64() stamps behind a barrier at each
                  ``// ---- `` phase comment, built under ``build/``, run
-                 on the captured drain passes.
+                 on the captured drain passes;
+  --k2-phases    K2's chain in clocks a step (its wait for a full tile,
+                 and its work) at B=1, S=2048, W=2560, both entries, from
+                 copies of this tree's source with clock64() stamps
+                 around the chain warp's loop, built under ``build/``:
+                 as it is, with the workers only passing the tile
+                 barriers (no loads, gates or stores), and without the
+                 TMA store of the output.
 """
 from __future__ import annotations
 
@@ -643,9 +655,10 @@ def traced(torch, fn, tag, what, kernel_keys):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    elementwise = sum("elementwise" in e.name for e in device)
     if not spans:
         print(f"{tag} the profiler saw no device kernels: busy share "
               f"not measured")
@@ -665,7 +678,8 @@ def traced(torch, fn, tag, what, kernel_keys):
         return f"{key} {total / 1e3:.2f} ms in {count} launches{each}"
     shares = ", ".join(share(key) for key in kernel_keys)
     print(f"{tag} {what}: untraced {untraced * 1e3:.1f} ms; traced "
-          f"{wall * 1e3:.1f} ms with {len(spans)} device kernels, device "
+          f"{wall * 1e3:.1f} ms with {len(spans)} device kernels "
+          f"({elementwise} of them PyTorch elementwise kernels), device "
           f"busy {busy / 1e3:.1f} ms ({100.0 * busy / (wall * 1e6):.1f}% "
           f"of the traced wall), of it {shares}")
     top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
@@ -873,12 +887,62 @@ def report_k4_plan(logs):
               f"all dynamic (key tile {block_n}, {stages} stages)")
 
 
+def k2_gated_inputs(torch, b, s, w, dtype, seed, extreme=False):
+    """The gated entry's inputs as recurrentgemma-2b's layer hands them
+    over: gate products and biases, lambda, u and the branch, drawn
+    normal; with ``extreme``, pre-activations of +-30 (sigmoid exactly 1
+    and ~1e-13), -87.5 and -100 (1 + exp past 2^126: the exact
+    reciprocal), and lambda of 20.5 and 25 (a exactly 0), -20 and -30 (a
+    rounds to 1, 1 - a^2 to 0: the 1e-12 clamp)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    gr, gi, u, br = 2 * n(b, s, w), 2 * n(b, s, w), n(b, s, w), n(b, s, w)
+    rb, ib, lam = n(w), n(w), 3 * n(w)
+    if extreme:
+        gr[..., 0::7], gr[..., 1::7], gr[..., 4::7] = 30.0, -30.0, -87.5
+        gi[..., 2::7], gi[..., 3::7], gi[..., 5::7] = 30.0, -30.0, -100.0
+        lam[0::5], lam[1::5], lam[2::5], lam[3::5] = 20.5, -20.0, -30.0, 25.0
+    return [t.to(dtype) for t in (gr, gi, u, br, rb, ib, lam)]
+
+
+def k2_raw_launches(torch, rg, a, x, h0, gated):
+    """K2's two C entries on fixed output buffers: back-to-back launches
+    time the kernel, not the wrapper's checks and allocations."""
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd, gfn = rg._kernel("rglru_fwd"), rg._kernel("rglru_gated_fwd")
+    b, s, w = a.shape
+    h_all, hf = torch.empty_like(a), torch.empty_like(h0)
+    y = torch.empty_like(gated[0])
+    ptrs = [t.data_ptr() for t in gated]
+    bf16 = int(gated[0].dtype == torch.bfloat16)
+
+    def launch_fwd():
+        if fwd(a.data_ptr(), x.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
+               hf.data_ptr(), b, s, w, 1, stream) != 0:
+            raise SystemExit("[k2] rglru_fwd launch failed")
+
+    def launch_gated():
+        if gfn(*ptrs, None, y.data_ptr(), hf.data_ptr(), b, s, w, bf16, 1,
+               stream) != 0:
+            raise SystemExit("[k2] rglru_gated_fwd launch failed")
+    return launch_fwd, launch_gated
+
+
 def check_k2(torch):
-    """K2 against rglru_scan on the card at recurrentgemma-2b's prefill
-    shape (B=1, W=2560), S 2048 and 3072: a = sigmoid, x and h0 normal,
-    f32.  Bitwise: both round the product and the sum apart."""
+    """K2's two entries against their plain versions on the card at
+    recurrentgemma-2b's prefill shape (B=1, W=2560), S 2048 and 3072:
+    ``rglru`` (a = sigmoid, x and h0 normal, f32) against rglru_scan, and
+    the gated entry (bf16, as served, with and without the extreme inputs
+    of ``k2_gated_inputs``) against rglru_gated_scan; then the gated
+    entry at a decode step (B=2, S=1, h0 = 5 N(0, 1), written in place).
+    Bitwise: both round every step as the plain versions do.  Times are
+    launches of the C entries (TMA path) on fixed buffers, the gated
+    entry's on the ordinary inputs: extreme ones send whole threads to
+    the exact reciprocal and square root."""
     from repro_torch.kernels import rglru as rg
-    from repro_torch.models.blocks_rnn import rglru_scan
+    from repro_torch.models.blocks_rnn import rglru_gated_scan, rglru_scan
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {}
     for s in (2048, 3072):
@@ -888,23 +952,58 @@ def check_k2(torch):
         h0 = torch.zeros((1, 2560), device="cuda")
         h_all, h_final = rg.rglru(a, x, h0)
         want_final, want_all = rglru_scan(a, x, h0)
+        pairs = [(h_all, want_all), (h_final, want_final)]
+        for extreme in (True, False):       # time the ordinary inputs
+            gated = k2_gated_inputs(torch, 1, s, 2560, torch.bfloat16,
+                                    seed=s, extreme=extreme)
+            pairs += zip(rg.rglru_gated(*gated), rglru_gated_scan(*gated))
         torch.cuda.synchronize()
-        err = max(float((h_all - want_all).abs().max()),
-                  float((h_final - want_final).abs().max()))
-        if not (torch.equal(h_all, want_all)
-                and torch.equal(h_final, want_final)):
-            raise SystemExit(f"[k2] MISMATCH at S={s}: max abs err {err} "
+        errs = [float((got.float() - want.float()).abs().max())
+                for got, want in pairs]
+        if not all(torch.equal(got, want) for got, want in pairs):
+            raise SystemExit(f"[k2] MISMATCH at S={s}: max abs err rglru "
+                             f"{max(errs[:2])}, gated {max(errs[2:])} "
                              f"(tolerance: none)")
-        ms = time_median_ms(torch, lambda: rg.rglru(a, x, h0), 20)
-        plain = time_median_ms(torch, lambda: rglru_scan(a, x, h0), 1,
-                               reps=3)
-        bnd, by = bound(12 * s * 2560, 2 * s * 2560, OP_RATE)
-        print(f"[k2] B=1 S={s} W=2560 f32: bitwise equal to the plain "
-              f"version (tolerance: none); kernel {ms * 1e3:.1f} us, plain "
-              f"{plain * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by})")
-        rows[s] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                       bound_by=by, library_ms=None)
-    return rows[2048]
+        launch_fwd, launch_gated = k2_raw_launches(torch, rg, a, x, h0, gated)
+        ms = time_median_ms(torch, launch_fwd, 20)
+        plain = time_median_ms(torch, lambda: rglru_scan(a, x, h0), 1, reps=3)
+        n = s * 2560
+        bnd, by = bound(12 * n + 8 * 2560, 2 * n, OP_RATE)
+        g_ms = time_median_ms(torch, launch_gated, 20)
+        g_plain = time_median_ms(torch, lambda: rglru_gated_scan(*gated), 1,
+                                 reps=3)
+        # gated: four bf16 (B, S, W) inputs and one output, three (W,)
+        # vectors, h_final; ~20 operations an element (bias adds, two
+        # sigmoids of 3, softplus product, two exps, 2x, 1 -, clamp,
+        # sqrt, two products, the step's 2, the branch product)
+        g_bnd, g_by = bound(10 * n + 10 * 2560, 20 * n, OP_RATE)
+        print(f"[k2] B=1 S={s} W=2560: rglru (f32) and the gated entry "
+              f"(bf16, with and without the extreme inputs) bitwise equal "
+              f"to their plain versions (tolerance: none); times on the "
+              f"ordinary inputs: rglru {ms * 1e3:.1f} us, "
+              f"plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by}); "
+              f"gated {g_ms * 1e3:.1f} us, plain {g_plain * 1e3:.1f} us, "
+              f"bound {g_bnd * 1e3:.2f} us ({g_by})")
+        rows[s] = (dict(max_abs_err=max(errs[2:]), ms=g_ms, plain_ms=g_plain,
+                        bound_ms=g_bnd, bound_by=g_by, library_ms=None),
+                   dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
+                        bound_ms=bnd, bound_by=by, library_ms=None))
+    dec = k2_gated_inputs(torch, 2, 1, 2560, torch.bfloat16, seed=7,
+                          extreme=True)
+    h = 5.0 * torch.randn((2, 2560), generator=gen, device="cuda")
+    want_y, want_h = rglru_gated_scan(*dec, h)
+    y, got_h = rg.rglru_gated(*dec, h, h_final=h)
+    torch.cuda.synchronize()
+    if not (got_h is h and torch.equal(y, want_y) and torch.equal(h, want_h)):
+        raise SystemExit("[k2] MISMATCH at the decode step (B=2, S=1)")
+    wrapper = time_median_ms(torch, lambda: rg.rglru_gated(*dec, h,
+                                                           h_final=h), 50)
+    print(f"[k2] decode step B=2 S=1 W=2560 bf16, h updated in place: "
+          f"bitwise equal to the plain version; {wrapper * 1e3:.1f} us a "
+          f"wrapper call (host-bound)")
+    gated, fwd = rows[2048]
+    return dict(gated, rglru_fwd=fwd,
+                s3072=dict(rows[3072][0], rglru_fwd=rows[3072][1]))
 
 
 def wkv_inputs(torch, s, seed):
@@ -972,8 +1071,9 @@ def serve_requests(cfg, n, lo, hi, max_new, seed):
 
 def run_engine(torch, cfg, model, reqs, slots, max_seq, backend):
     """Serve ``reqs`` through ``ServingEngine``; returns (wall s, prefill
-    ms per request, decode ms per step).  Prefill and decode are timed
-    on the host clock around calls that end in a device read."""
+    ms per request, decode ms per step, prefills, decode steps).  Prefill
+    and decode are timed on the host clock around calls that end in a
+    device read."""
     from repro_torch.serve import ServingEngine
     eng = ServingEngine(cfg, model, batch_slots=slots, max_seq=max_seq,
                         device="cuda", backend=backend)
@@ -997,7 +1097,7 @@ def run_engine(torch, cfg, model, reqs, slots, max_seq, backend):
     eng.run_until_drained()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0, statistics.mean(prefill_ms),
-            statistics.median(decode_ms))
+            statistics.median(decode_ms), len(prefill_ms), len(decode_ms))
 
 
 def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
@@ -1006,9 +1106,9 @@ def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
     with the kernels, then the same requests with the plain versions;
     first-token logits within LOGIT_TOL, token streams equal or each
     divergence a near tie.  ``kernels`` maps each kernel's wrapper module
-    to its launches per prefill; every one must launch exactly that many
-    times a request with the kernels and never with the plain versions.
-    Returns ``{module: launches}`` of the kernels' run."""
+    to its launches per prefill and per decode step; every one must
+    launch exactly that many times with the kernels and never with the
+    plain versions.  Returns ``{module: launches}`` of the kernels' run."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     cfg = get_config(arch)
@@ -1031,8 +1131,8 @@ def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
                              f"tokens")
         for kernel in kernels:
             kernel.LAUNCHES = 0
-        wall, pre, dec = run_engine(torch, cfg, model, reqs, slots, max_seq,
-                                    backend)
+        wall, pre, dec, n_pre, n_dec = run_engine(torch, cfg, model, reqs,
+                                                  slots, max_seq, backend)
         launches = {kernel: kernel.LAUNCHES for kernel in kernels}
         toks = sum(len(r.output) for r in reqs)
         counts = ", ".join(f"{k.__name__.split('.')[-1]} launches {n}"
@@ -1041,17 +1141,19 @@ def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
               f"{min(len(r.prompt) for r in reqs)}-{longest} tokens), "
               f"{slots} slots, max_seq {max_seq}: {toks} tokens in "
               f"{wall:.2f} s ({toks / wall:.1f} tok/s); prefill {pre:.1f} ms "
-              f"per request, decode {dec:.1f} ms per step; {counts}")
-        runs[backend] = (reqs, launches)
-    reqs, launches = runs["cuda"]
-    ref_reqs, ref_launches = runs["reference"]
-    for kernel, per_prefill in kernels.items():
-        if (launches[kernel] != per_prefill * n_req
-                or ref_launches[kernel] != 0):
+              f"per request, decode {dec:.1f} ms per step ({n_pre} "
+              f"prefills, {n_dec} decode steps); {counts}")
+        runs[backend] = (reqs, launches, n_pre, n_dec)
+    reqs, launches, n_pre, n_dec = runs["cuda"]
+    ref_reqs, ref_launches = runs["reference"][:2]
+    for kernel, (per_prefill, per_step) in kernels.items():
+        want = per_prefill * n_pre + per_step * n_dec
+        if launches[kernel] != want or ref_launches[kernel] != 0:
             raise SystemExit(
                 f"{tag} {kernel.__name__} launches: {launches[kernel]} "
-                f"with the kernels (expected {per_prefill} x {n_req} "
-                f"prefills), {ref_launches[kernel]} with the plain versions")
+                f"with the kernels (expected {per_prefill} x {n_pre} "
+                f"prefills + {per_step} x {n_dec} decode steps), "
+                f"{ref_launches[kernel]} with the plain versions")
     with torch.inference_mode():
         worst = 0.0
         for r in reqs:
@@ -1150,12 +1252,52 @@ def k3_raw_launch(torch, fn, r, k, v, w, u):
     return launch, y, st
 
 
+def k2_parent(torch, csrc):
+    """K2's rglru_fwd of the checkout at ``csrc``'s tree against this
+    tree's at B=1, S=2048, W=2560 (f32), in turns; their outputs must be
+    equal (both are bitwise to rglru_scan)."""
+    import ctypes
+    from repro_torch.kernels import rglru as rg
+    text = read(os.path.join(csrc, "rglru.cu"))
+    old = build_other("rglru", text, "parent").rglru_fwd
+    # the entry took (a, x, h0, h_all, h_final, B, S, W, stream) before
+    # its path argument
+    n_int = 4 if "int tma" in text else 3
+    old.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int + [
+        ctypes.c_void_p]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (1, 2048, 2560)
+    a = torch.sigmoid(torch.randn(shape, generator=gen, device="cuda"))
+    x = torch.randn(shape, generator=gen, device="cuda")
+    h0 = torch.randn((1, 2560), generator=gen, device="cuda")
+    outs = [(torch.empty_like(a), torch.empty_like(h0)) for _ in range(2)]
+    stream = torch.cuda.current_stream().cuda_stream
+    new = rg._kernel("rglru_fwd")
+
+    def launch(fn, out, extra):
+        args = [t.data_ptr() for t in (a, x, h0, *out)] + [1, 2048, 2560]
+        if fn(*args, *extra, stream) != 0:
+            raise SystemExit("[parent] K2 launch failed")
+    fns = [lambda: launch(old, outs[0], [1] * (n_int - 3)),
+           lambda: launch(new, outs[1], [1])]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(*outs)):
+        raise SystemExit("[parent] K2 of the parent and of this tree differ")
+    turns = [time_median_ms(torch, fns[i], 20) for i in (0, 1, 1, 0)]
+    print(f"[parent] K2 rglru (B=1, S=2048, W=2560, f32): parent "
+          f"{turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us, this tree "
+          f"{turns[1] * 1e3:.1f} / {turns[2] * 1e3:.1f} us per launch "
+          f"(turns parent, change, change, parent); outputs equal")
+
+
 def compare_parent(torch, parent, drain_inputs):
-    """K1 (first drain pass, and the mean over the captured drain) and K3
-    (rwkv6-7b, S=1000) of the checkout at ``parent`` against this tree's,
-    built from each tree's source, on the same inputs, timed in turns:
-    parent, change, change, parent.  Also checks that both give the same
-    K1 answers and K3 within 2e-4 of each other."""
+    """K1 (first drain pass, and the mean over the captured drain), K2's
+    rglru and K3 (rwkv6-7b, S=1000) of the checkout at ``parent`` against
+    this tree's, built from each tree's source, on the same inputs, timed
+    in turns: parent, change, change, parent.  Also checks that both give
+    the same K1 and K2 answers and K3 within 2e-4 of each other."""
     import ctypes
     from repro_torch.kernels import policy_eval as pe
     from repro_torch.kernels import wkv6 as wk
@@ -1192,6 +1334,7 @@ def compare_parent(torch, parent, drain_inputs):
               f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, this tree "
               f"{turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us per launch "
               f"(turns parent, change, change, parent)")
+    k2_parent(torch, csrc)
     r, k_, v, w, u = wkv_inputs(torch, 1000, seed=1000)
     old_l, y0, s0 = k3_raw_launch(torch, old_wk, r, k_, v, w, u)
     new_l, y1, s1 = k3_raw_launch(torch, wk._kernel(), r, k_, v, w, u)
@@ -1297,6 +1440,91 @@ def k1_phases(torch, drain_inputs):
               f"{per[0].sum()} / {per.sum(1).mean():.0f}")
 
 
+# --------------------------------------------- on request: --k2-phases
+def k2_phases(torch):
+    """The chain warp's clocks a step, waiting for a full tile and
+    working, mean over the blocks, from instrumented copies of K2's
+    source: as it is, with the workers only passing the tile barriers,
+    and without the output's TMA store (the outputs of the last two are
+    not K2's; only their clocks are read)."""
+    import ctypes
+    import numpy as np
+    text = read(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                             "rglru.cu"))
+    text = text.replace("namespace {", "namespace {\n__device__ long long "
+                        "k2_clk[1 << 13];", 1)
+    stamps = [
+        ("      bar_sync(kBarFull + (c & 1), kThreads);\n",
+         "      long long t0 = clock64();\n"
+         "      bar_sync(kBarFull + (c & 1), kThreads);\n"
+         "      long long t1 = clock64();\n      wait_clk += t1 - t0;\n"),
+        ("      __syncwarp();\n      bar_arrive(kBarEmpty",
+         "      __syncwarp();\n      work_clk += clock64() - t1;\n"
+         "      bar_arrive(kBarEmpty"),
+        ("    float h = 0.0f;\n",
+         "    float h = 0.0f;\n    long long wait_clk = 0, work_clk = 0;\n"),
+        ("    if (live) p.h_final[hc] = h;\n",
+         "    if (live) p.h_final[hc] = h;\n    if (lane == 0) {\n"
+         "      const int blk = blockIdx.y * gridDim.x + blockIdx.x;\n"
+         "      k2_clk[2 * blk] = wait_clk;\n"
+         "      k2_clk[2 * blk + 1] = work_clk;\n    }\n")]
+    variants = {
+        "as it is": [],
+        "workers only pass the tile barriers": [
+            ("  for (int c = 0; c < kStages - 2; ++c) w.issue(c);\n", ""),
+            ("    w.wait(c);\n    bar_sync(kBarWork, kWorkers);\n"
+             "    w.issue(c + kStages - 2);\n    w.stage(c);\n", ""),
+            ("      w.output(c - 1);\n", ""),
+            ("  w.output(n_chunks - 1);\n", "")],
+        "no TMA store of the output": [
+            ("      if (wt == 0) tma_store(maps + S::kIn, smem_addr(o), col0, "
+             "c * kSteps, b);\n", "")]}
+    reader = ('\nextern "C" int k2_read(void* dst) {\n  return (int)'
+              'cudaMemcpyFromSymbol(dst, k2_clk, sizeof(k2_clk));\n}\n')
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    s, w = 2048, 2560
+    a = torch.sigmoid(torch.randn((1, s, w), generator=gen, device="cuda"))
+    x = torch.randn((1, s, w), generator=gen, device="cuda")
+    h0 = torch.zeros((1, w), device="cuda")
+    gated = k2_gated_inputs(torch, 1, s, w, torch.bfloat16, seed=4)
+    host = np.zeros(1 << 13, np.int64)
+    n_blocks, n_steps = w // 8, s
+    for name, edits in variants.items():
+        src = text
+        for old, new in stamps + edits:
+            if old not in src:
+                raise SystemExit(f"[k2 phases] {name}: no {old.strip()!r}")
+            src = src.replace(old, new)
+        lib = build_other("rglru", src + reader,
+                          "k2_phases_" + str(len(edits)))
+        lib.k2_read.argtypes = [ctypes.c_void_p]
+        fwd, gfn = lib.rglru_fwd, lib.rglru_gated_fwd
+        fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        gfn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        stream = torch.cuda.current_stream().cuda_stream
+        out = [torch.empty_like(a), torch.empty_like(h0),
+               torch.empty_like(gated[0])]
+        calls = {
+            "rglru": lambda: fwd(a.data_ptr(), x.data_ptr(), h0.data_ptr(),
+                                 out[0].data_ptr(), out[1].data_ptr(), 1, s,
+                                 w, 1, stream),
+            "gated": lambda: gfn(*[t.data_ptr() for t in gated], None,
+                                 out[2].data_ptr(), out[1].data_ptr(), 1, s,
+                                 w, 1, 1, stream)}
+        cells = []
+        for entry, call in calls.items():
+            ms = time_median_ms(torch, call, 10)
+            call()
+            torch.cuda.synchronize()
+            lib.k2_read(host.ctypes.data)
+            clk = host[:2 * n_blocks].reshape(n_blocks, 2).mean(0) / n_steps
+            cells.append(f"{entry} {ms * 1e3:.1f} us, chain waits "
+                         f"{clk[0]:.1f} and works {clk[1]:.1f} clocks a step")
+        print(f"[k2 phases] {name}: " + "; ".join(cells))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1325,11 +1553,12 @@ def main() -> int:
     k4_local = check_k4_local(torch)
     k3 = check_k3(torch)
     k2 = check_k2(torch)
-    llama = serve_phase(torch, "llama3.2-1b", {fa: 16}, n_req=8, slots=4,
-                        max_seq=2048, lo=128, hi=1024, max_new=16)
-    rwkv = serve_phase(torch, "rwkv6-7b", {wk: 32}, n_req=4, slots=2,
+    llama = serve_phase(torch, "llama3.2-1b", {fa: (16, 0)}, n_req=8,
+                        slots=4, max_seq=2048, lo=128, hi=1024, max_new=16)
+    rwkv = serve_phase(torch, "rwkv6-7b", {wk: (32, 0)}, n_req=4, slots=2,
                        max_seq=1024, lo=128, hi=768, max_new=8)
-    rgemma = serve_phase(torch, "recurrentgemma-2b", {rg: 18, fa: 8},
+    rgemma = serve_phase(torch, "recurrentgemma-2b", {rg: (18, 18),
+                                                      fa: (8, 0)},
                          n_req=4, slots=2, max_seq=4096, lo=256, hi=3072,
                          max_new=8, min_longest=2048)
     if "--parent" in sys.argv:
@@ -1337,6 +1566,8 @@ def main() -> int:
                        drain_inputs)
     if "--k1-phases" in sys.argv:
         k1_phases(torch, drain_inputs)
+    if "--k2-phases" in sys.argv:
+        k2_phases(torch)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     k4_err = max([k4["max_abs_err"]]
                  + [r["max_abs_err"] for r in k4_local.values()])

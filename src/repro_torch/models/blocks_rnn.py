@@ -12,9 +12,11 @@ algebra with its decays as products of w over step ranges instead of
 exponentials of log-decay differences, which keep f32 precision where
 cumulative log-decays grow large.
 ``rglru_scan`` is the RG-LRU recurrence, one ``a_t * h + x_t`` per
-token: the plain version of K2 (``repro_torch.kernels.rglru``), which
-RG-LRU prefill runs on CUDA tensors.  Decode stays one plain step in
-both, as in the reference.
+token: the plain version of K2's scan entry (``repro_torch.kernels.
+rglru.rglru``).  ``rglru_gated_scan`` is the whole RG-LRU between its
+matrix products (gates, recurrence, branch product): the plain version
+of K2's gated entry, which the RG-LRU layer runs on CUDA tensors in
+prefill and in decode (one step from the cache's h).
 
 Block contract (shared with ``blocks_attn``):
 
@@ -356,39 +358,53 @@ def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor
     return h, torch.stack(hs, dim=1)
 
 
+def rglru_gated_scan(gr: torch.Tensor, gi: torch.Tensor, u: torch.Tensor,
+                     branch: torch.Tensor, rgate_bias: torch.Tensor,
+                     igate_bias: torch.Tensor, lam: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU between its matrix products: the gates from the gate
+    products gr, gi (no bias), then ``rglru_scan`` from h0 (None: zeros),
+    then the branch product.  The plain version of K2's gated entry
+    (``kernels.rglru.rglru_gated``).  The casts are the reference's: the
+    gates are sigmoids in the activation dtype, then f32; the recurrence
+    runs in f32; its output is cast back to the branch's dtype.  Returns
+    (branch * h (B, S, W), h_final (B, W) f32)."""
+    r = torch.sigmoid(gr + rgate_bias).float()
+    i = torch.sigmoid(gi + igate_bias).float()
+    log_a = -_RGLRU_C * F.softplus(lam.float()) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                       1e-12)) * i * u.float()
+    if h0 is None:
+        h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                         device=a.device)
+    h_final, h = rglru_scan(a, gated, h0)
+    return branch * h.to(branch.dtype), h_final
+
+
 def rglru_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                 cache: Cache, backend: str = "cuda"
                 ) -> Tuple[torch.Tensor, Cache]:
-    """The Griffin recurrent block: GeLU branch * RG-LRU branch.  The
-    casts are the reference's: the gates are sigmoids in the matmul
-    dtype, then f32; the recurrence runs in f32; its output is cast back
-    to the branch's dtype."""
+    """The Griffin recurrent block: GeLU branch * RG-LRU branch.  Between
+    the matrix products, prefill and decode (one step from the cache's
+    h) run K2's gated entry, or with ``backend="reference"`` its plain
+    version."""
     branch = F.gelu(matmul(x, params["rg.w_branch"]), approximate="tanh")
     u = matmul(x, params["rg.w_in"])
     u, conv_state = _causal_conv(
         params, u, cache["conv"] if mode == "decode" else None, mode)
-
-    r = torch.sigmoid(matmul(u, params["rg.w_rgate"])
-                      + params["rg.rgate_bias"]).float()
-    i = torch.sigmoid(matmul(u, params["rg.w_igate"])
-                      + params["rg.igate_bias"]).float()
-    log_a = -_RGLRU_C * F.softplus(params["rg.lambda"].float()) * r
-    a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
-                                       1e-12)) * i * u.float()
-
-    if mode == "decode":
-        h_final = a[:, 0] * cache["h"] + gated[:, 0]
-        h = h_final[:, None]
+    gates = (matmul(u, params["rg.w_rgate"]), matmul(u, params["rg.w_igate"]),
+             u, branch, params["rg.rgate_bias"], params["rg.igate_bias"],
+             params["rg.lambda"])
+    h0 = cache["h"] if mode == "decode" else None
+    if backend == "reference":
+        y, h_final = rglru_gated_scan(*gates, h0)
     else:
-        h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
-                         device=a.device)
-        if backend == "reference":
-            h_final, h = rglru_scan(a, gated, h0)
-        else:
-            h, h_final = rglru_kernel.rglru(a, gated, h0)
+        # decode writes the new h into the cache's own tensor
+        y, h_final = rglru_kernel.rglru_gated(*gates, h0, h_final=h0)
 
-    y = matmul(branch * h.to(branch.dtype), params["rg.w_out"])
+    y = matmul(y, params["rg.w_out"])
     if mode == "decode":
         # the reference's new conv state has the activations' dtype:
         # written in place where the cache has it too (bf16 serving), a

@@ -21,8 +21,21 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   state: every head size it takes, S of 1, 37 and 1000.  Tolerance:
   atol = rtol = 2e-4 (``tests/test_kernels_recurrent.py``'s).
 * K2 (``kernels.rglru``) vs ``models.blocks_rnn.rglru_scan``: zero and
-  nonzero h0, ragged S and W, recurrentgemma's width.  Bitwise: both
-  round the product and the sum apart.
+  nonzero h0, ragged S and W, recurrentgemma's width, and the 8-column
+  strips' edges (W of 8, 9, 17 and 2568; S of 64 and 65, a chunk and
+  one step).  Bitwise: both round the product and the sum apart.
+* K2's gated entry (``kernels.rglru.rglru_gated``) vs
+  ``models.blocks_rnn.rglru_gated_scan``, bfloat16 and float32: a
+  decode step (1, 1, 2560) from h0 = 5 N(0, 1) written in place,
+  (2, 37, 24), (3, 129, 2560), (1, 2048, 2560) and (1, 3072, 2560),
+  with gate pre-activations of +-30, -87.5 and -100 and lambda of 20.5,
+  25, -20 and -30 (sigmoid exactly 1, the exact reciprocal past 2^126,
+  a exactly 0 and 1, the 1e-12 clamp), widths that take the
+  one-element path (W of 37 and, in bf16, 20 and 100) and a TMA box
+  past W (100 in f32); then a sweep of pre-activations over [-90, 40]
+  and lambda over [-25, 25] at (1, 4096, 2560).  Bitwise: the kernel
+  repeats the plain version's operations and roundings.  One
+  ``LAUNCHES`` per call.
 * K3 at B = 2 for every head size and S of 1, 7, 16, 17 and 1000 (one
   step, less than a chunk, one chunk, a chunk and one step, a short
   tail chunk), with w holding exact zeros and exact ones, and with w
@@ -52,7 +65,8 @@ from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models.attention import full_attention
 from repro_torch.core.backfill import schedule_pass_batched
-from repro_torch.models.blocks_rnn import rglru_scan, wkv_scan
+from repro_torch.models.blocks_rnn import (rglru_gated_scan, rglru_scan,
+                                          wkv_scan)
 
 
 def _card():
@@ -249,7 +263,9 @@ def test_flash_attention_window_f32_matches_plain_version(d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,w", [(1, 1, 1), (2, 37, 24), (1, 300, 100),
-                                   (3, 129, 2560), (1, 2048, 2560)])
+                                   (3, 129, 2560), (1, 2048, 2560),
+                                   (1, 64, 8), (2, 65, 9), (1, 200, 17),
+                                   (1, 129, 2568)])
 def test_rglru_matches_plain_version(b, s, w):
     _card()
     rng = np.random.default_rng(s + w)
@@ -267,6 +283,63 @@ def test_rglru_matches_plain_version(b, s, w):
         assert rg.LAUNCHES == launches + 1
         assert torch.equal(h_all, want_all)
         assert torch.equal(h_final, want_final)
+
+
+def _gated_case(b, s, w, dtype, seed, sweep=False):
+    """The gated entry's inputs, made with numpy: gate products with
+    extreme pre-activations (or a sweep of them), biases, lambda, u and
+    the branch."""
+    rng = np.random.default_rng(seed)
+    if sweep:
+        gr, gi = (rng.uniform(-90.0, 40.0, (b, s, w)) for _ in range(2))
+        lam = rng.uniform(-25.0, 25.0, w)
+    else:
+        gr, gi = (2.0 * rng.standard_normal((b, s, w)) for _ in range(2))
+        lam = 3.0 * rng.standard_normal(w)
+        gr[..., 0::7], gr[..., 1::7], gr[..., 4::7] = 30.0, -30.0, -87.5
+        gi[..., 2::7], gi[..., 3::7], gi[..., 5::7] = 30.0, -30.0, -100.0
+        lam[0::5], lam[1::5], lam[2::5], lam[3::5] = 20.5, -20.0, -30.0, 25.0
+    u, br = (rng.standard_normal((b, s, w)) for _ in range(2))
+    rb, ib = rng.standard_normal(w), rng.standard_normal(w)
+    return [torch.from_numpy(v.astype(np.float32)).to(dtype).cuda()
+            for v in (gr, gi, u, br, rb, ib, lam)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", [(1, 1, 2560), (2, 37, 24), (2, 37, 37),
+                                   (2, 21, 20), (1, 100, 100),
+                                   (3, 129, 2560), (1, 2048, 2560),
+                                   (1, 3072, 2560)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_rglru_gated_matches_plain_version(dtype, b, s, w):
+    _card()
+    args = _gated_case(b, s, w, dtype, seed=b * s + w)
+    rng = np.random.default_rng(w)
+    h0 = torch.from_numpy((5.0 * rng.standard_normal((b, w))).astype(
+        np.float32)).cuda()
+    for start in (None, h0):
+        want_y, want_h = rglru_gated_scan(*args, start)
+        launches = rg.LAUNCHES
+        y, h = rg.rglru_gated(*args, start)
+        torch.cuda.synchronize()
+        assert rg.LAUNCHES == launches + 1
+        assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    cache_h = h0.clone()                       # decode: h in place
+    y, h = rg.rglru_gated(*args, cache_h, h_final=cache_h)
+    torch.cuda.synchronize()
+    assert h is cache_h
+    assert torch.equal(y, want_y) and torch.equal(cache_h, want_h)
+
+
+@pytest.mark.cuda
+def test_rglru_gated_sweep_matches_plain_version():
+    _card()
+    args = _gated_case(1, 4096, 2560, torch.bfloat16, seed=1, sweep=True)
+    y, h = rg.rglru_gated(*args)
+    want_y, want_h = rglru_gated_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
 
 
 @pytest.mark.cuda

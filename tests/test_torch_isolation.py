@@ -7,8 +7,8 @@
 * On a host without a CUDA device, every entry point asked for
   ``device="cuda"`` (their default) raises instead of running on the
   CPU, the twin's and the serving stack's alike, and every kernel
-  wrapper (K1, K1', K2, K3, K4) raises for anything but CPU or CUDA
-  tensors.
+  wrapper (K1, K1', K2's two entries, K3, K4) raises for anything but
+  CPU or CUDA tensors.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -138,11 +138,12 @@ def test_serving_entry_points_raise_for_cuda_without_a_card():
             call()
 
 
-@pytest.mark.parametrize("kernel", ["wkv6", "flash_attention", "rglru"])
+@pytest.mark.parametrize("kernel", ["wkv6", "flash_attention", "rglru",
+                                    "rglru_gated"])
 def test_model_kernel_wrappers_refuse_other_devices(kernel):
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
-        build.load(kernel)
+        build.load(kernel.replace("_gated", ""))
     meta = dict(device="meta")
     if kernel == "wkv6":
         args = (torch.empty((1, 4, 2, 16), **meta),) * 4 + (
@@ -152,6 +153,10 @@ def test_model_kernel_wrappers_refuse_other_devices(kernel):
         args = (torch.empty((2, 5, 24), **meta),) * 2 + (
             torch.empty((2, 24), **meta),)
         wrapper, module = rg.rglru, rg
+    elif kernel == "rglru_gated":
+        args = (torch.empty((2, 5, 24), **meta),) * 4 + (
+            torch.empty((24,), **meta),) * 3
+        wrapper, module = rg.rglru_gated, rg
     else:
         args = (torch.empty((1, 4, 8, 32), **meta),
                 torch.empty((1, 2, 8, 32), **meta),
