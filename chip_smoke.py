@@ -60,7 +60,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      max_seq 4096, 8 new tokens; K2 (18 a prefill and 18 a decode step,
      its gated entry) and K4 (8 a prefill, windowed, D=256) launches.
      Each serving phase's profile counts PyTorch's elementwise kernels
-     in a prefill and a decode step.
+     in a prefill and a decode step;
+ 12. a Polaris-scale replay grid through ``DrainEngine.replay_grid``: 8
+     scenarios of 1,000 heavy-tailed Poisson jobs on 560 nodes (J=1024)
+     x the k=32 DRAS pool = 256 forks, goal ``score``, K1 in every step.
+     Bitwise against ``backend="reference"`` on the card (times,
+     deadlocks, events, iterations, passes, costs, winners; K1 never
+     launched there) and against the port's host emulator on two
+     (scenario, policy) pairs, whose ``run(fast=True)`` reports equal
+     the host loop's; the grid's wall after a warm run, iterations,
+     passes, K1's launches and time a launch, host reads; the same
+     replay block by block, its second block under
+     ``torch.cuda.set_sync_debug_mode("error")``, four blocks under
+     ``torch.profiler`` (device busy share, kernels per iteration), K1
+     on one of their passes (k=256) against its plain version with its
+     time, the plain time and the bound; the
+     DRAS pool's priority keys on the card against the CPU's in ulp on
+     phase 4's mirror and on the deepest replay queue (C3); and
+     ``twin_loop --replay-grid 8`` on ``cuda`` and ``cpu``, same table.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -641,7 +658,8 @@ def traced(torch, fn, tag, what, kernel_keys):
     torch.profiler: the device's busy share of the traced wall (the
     union of kernel intervals), the kernel count, the device time of the
     kernels whose name holds each of ``kernel_keys`` and the top six
-    kernels."""
+    kernels.  Returns those numbers (times in us; busy None when the
+    profiler saw no device kernel)."""
     if isinstance(kernel_keys, str):
         kernel_keys = (kernel_keys,)
     from torch.profiler import ProfilerActivity, profile
@@ -659,10 +677,12 @@ def traced(torch, fn, tag, what, kernel_keys):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     elementwise = sum("elementwise" in e.name for e in device)
+    out = dict(untraced_us=untraced * 1e6, wall_us=wall * 1e6, busy_us=None,
+               kernels=len(spans), by_key={})
     if not spans:
         print(f"{tag} the profiler saw no device kernels: busy share "
               f"not measured")
-        return
+        return out
     busy, lo, hi = 0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
         if a > hi:
@@ -670,10 +690,12 @@ def traced(torch, fn, tag, what, kernel_keys):
         else:
             hi = max(hi, b)
     busy += hi - lo
+    out["busy_us"] = busy
     def share(key):
         evs = [e for e in prof.key_averages() if key in e.key]
         total = sum(e.device_time_total for e in evs)
         count = sum(e.count for e in evs)
+        out["by_key"][key] = (total, count)
         each = f", {total / count:.2f} us each" if count else ""
         return f"{key} {total / 1e3:.2f} ms in {count} launches{each}"
     shares = ", ".join(share(key) for key in kernel_keys)
@@ -686,6 +708,7 @@ def traced(torch, fn, tag, what, kernel_keys):
     for e in [e for e in top if not e.key.startswith("aten::")][:6]:
         print(f"{tag}   {e.device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x {e.key[:60]}")
+    return out
 
 
 def profile_cycle(torch, engine, snapshot):
@@ -1215,6 +1238,285 @@ def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, keys):
                tag, f"decode step of {slots} slots", keys)
 
 
+# --------------------------------------------------------------- phase 12
+REPLAY_SCENARIOS = 8         # S: eight arrival streams of one family
+REPLAY_JOBS = 1000           # jobs per trace (J = 1024 slots)
+REPLAY_GAP = 100.0           # mean inter-arrival, s: offered load ~0.85
+
+
+def polaris_traces():
+    from repro_torch.cluster.workload import poisson_trace, stack_scenarios
+    traces = [poisson_trace(REPLAY_JOBS, POLARIS_NODES, REPLAY_GAP, (1, 11),
+                            (300.0, 86400.0), seed=s, heavy_tail=True)
+              for s in range(REPLAY_SCENARIOS)]
+    return traces, stack_scenarios(traces, POLARIS_NODES,
+                                   max_jobs=POLARIS_SLOTS)
+
+
+def offered_load(trace):
+    span = trace[-1].submit_t - trace[0].submit_t
+    return sum(j.nodes * j.true_runtime for j in trace) / (
+        POLARIS_NODES * span), span
+
+
+def key_parity(torch, states, pool, names):
+    """Priority keys of ``pool`` (one row per fork of the batched
+    ``states``) computed on the card and on the CPU: the largest
+    difference in ulp over queued slots, per family, and the rows whose
+    priority order differs."""
+    from repro_torch.core.backfill import priority_order
+    from repro_torch.core.policies import priority_key_spec
+    from repro_torch.core.state import QUEUED
+
+    def on(dev):
+        st, pl = states.to(dev), pool.to(dev)
+        return (priority_key_spec(st.jobs, st.now, pl).cpu(),
+                priority_order(st, pl).cpu())
+    (k_dev, o_dev), (k_cpu, o_cpu) = on("cuda"), on("cpu")
+
+    def ordered(k):              # float bits -> integers in float order
+        b = k.contiguous().view(torch.int32).long()
+        return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+    queued = (states.jobs.state == QUEUED).cpu()
+    ulp = torch.where(queued, (ordered(k_dev) - ordered(k_cpu)).abs(), 0)
+    fams = {"EXPF": [n == "EXPF" for n in names],
+            "expf tau=7200": [n == "expf[tau=7200]" for n in names],
+            "WFP": [n == "WFP" or n.startswith("wfp[") for n in names],
+            "static lin": [n in ("FCFS", "SJF", "SAF", "LJF", "LXF")
+                           for n in names]}
+    by_fam = {f: int(ulp[torch.tensor(m)].max()) for f, m in fams.items()}
+    differ = [names[i] for i in range(len(names))
+              if not torch.equal(o_dev[i], o_cpu[i])]
+    return by_fam, differ, int(queued.sum(1).max())
+
+
+def replay_cli(device):
+    """``twin_loop --replay-grid 8`` at the CLI's grid size: its table
+    (the wall time cut from the first line) and the line as printed."""
+    import contextlib
+    import io
+    from repro_torch.launch import twin_loop
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        twin_loop.main(["--replay-grid", "8", "--trace", "poisson",
+                        "--jobs", "48", "--nodes", "32", "--pool",
+                        "extended", "--device", device])
+    lines = buf.getvalue().splitlines()
+    i = next(n for n, line in enumerate(lines)
+             if line.startswith("replay grid:"))
+    return [lines[i].rsplit(" in ", 1)[0]] + lines[i + 1:], lines[i]
+
+
+def replay_phase(torch, pe, snapshot):
+    """A Polaris-scale replay grid through ``DrainEngine.replay_grid``:
+    S=8 arrival streams of 1,000 jobs x the k=32 DRAS pool (256 forks,
+    J=1024), with K1 as the pass, held bitwise against the reference
+    backend on the card and against the port's host emulator on two
+    (scenario, policy) pairs; a block of iterations under
+    ``set_sync_debug_mode("error")``; C3 (keys on the card against the
+    CPU); the replay-grid CLI on cuda and cpu."""
+    import numpy as np
+    from repro_torch.cluster.emulator import ClusterEmulator
+    from repro_torch.core import des
+    from repro_torch.core.engine import (DrainEngine, make_order_fn,
+                                         replay_inputs)
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.state import QUEUED, map_state
+    t_phase = time.perf_counter()
+    card = card_line()
+    traces, scen = polaris_traces()
+    load, span = offered_load(traces[0])
+    pool = parse_pool(DRAS_POOL)
+    S, P, J = REPLAY_SCENARIOS, len(pool), POLARIS_SLOTS
+    cuda = DrainEngine("cuda", device="cuda")
+    ref = DrainEngine("reference", device="cuda")
+    print(f"[replay] {S} scenarios of {REPLAY_JOBS} jobs on "
+          f"{POLARIS_NODES} nodes (J={J}) x the k={P} DRAS pool = {S * P} "
+          f"forks, goal score; scenario 0 offers {load:.3f} of the "
+          f"cluster over {span / 3600:.1f} h of arrivals")
+
+    def run(engine):
+        out = engine.replay_grid(scen, pool.spec, "score")
+        out.end_t.cpu()
+        return out
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = run(cuda)
+    cold = time.perf_counter() - t0
+    launches = pe.LAUNCHES
+    if launches == 0:
+        raise SystemExit("[replay] the cuda grid never launched K1")
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    want = run(ref)
+    ref_s = time.perf_counter() - t0
+    if pe.LAUNCHES:
+        raise SystemExit(f"[replay] the reference backend launched K1 "
+                         f"{pe.LAUNCHES} times")
+    for name in ("start_t", "end_t", "deadlocked", "events", "costs",
+                 "best"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise SystemExit(f"[replay] cuda and reference differ in {name}")
+    for name in ("iters", "pass_invocations"):
+        if int(getattr(got.result, name)) != int(getattr(want.result, name)):
+            raise SystemExit(f"[replay] cuda and reference differ in {name}")
+    if got.deadlocked.any() or not torch.isfinite(got.costs).all():
+        raise SystemExit("[replay] a fork deadlocked or has no finite cost")
+    iters = int(got.result.iters)
+    passes = int(got.result.pass_invocations)
+    reads = -(-launches // des.REPLAY_BLOCK)
+    print(f"[replay] cuda == reference on the card: start_t, end_t, "
+          f"deadlocked, events, iters ({iters}), pass_invocations "
+          f"({passes}), costs and best identical (tolerance: none); K1 "
+          f"launches: cuda {launches}, reference 0; winners "
+          f"{[pool.names[int(b)] for b in got.best]}")
+
+    t0 = time.perf_counter()
+    run(cuda)
+    warm = time.perf_counter() - t0
+
+    # the same replay block by block through des's step: block 2 under
+    # sync-debug "error"; a profile of 4 blocks from block 21 (or the
+    # last 4); the state of the scenario with the deepest queue at a
+    # block's end (for C3)
+    states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool.spec,
+                                                          "cuda")
+    order_fn = make_order_fn(states, pool_t, cuda.plan(pool.spec) * S,
+                             torch.isfinite(arrival_t))
+    N = des.REPLAY_BLOCK
+    w_at = max(1, min(20, reads - 4))
+    k1_pass, capture = cuda.pass_fn(), []
+
+    def pass_fn(st, order, limit):     # keeps the inputs of block w_at+1's
+        if blk == w_at and not capture:    # first pass
+            jobs = st.jobs
+            capture.append((order, jobs.state, jobs.nodes, jobs.est_runtime,
+                            jobs.end_t, st.free_nodes, st.now, limit))
+        return k1_pass(st, order, limit)
+    step = des.make_replay_step(arrival_t, true_rt, order_fn, pass_fn)
+
+    def blocks(c, n):
+        for _ in range(n * N):
+            c = step(c)
+        return c
+    c, window, deep, blk = des.replay_init(states), None, (-1, None, 0), 0
+    while True:
+        if blk == 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            c = blocks(c, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        blk += 1
+        if blk == w_at:
+            window = c
+        depth = (c.st.jobs.state == QUEUED).sum(1).reshape(S, P).amax(1)
+        s_deep = int(depth.argmax())
+        if int(depth[s_deep]) > deep[0]:
+            deep = (int(depth[s_deep]), map_state(
+                lambda x: x[s_deep * P:(s_deep + 1) * P].clone(), c.st),
+                blk * N)
+        if not bool(des.replay_cond(c, arrival_t)):
+            break
+    if not (int(c.it) == iters and torch.equal(c.events, got.result.events)
+            and torch.equal(c.st.jobs.start_t,
+                            got.result.state.jobs.start_t)):
+        raise SystemExit("[replay] the block-by-block run disagrees")
+    print(f"[replay] block 2 of the grid ({N} iterations, K1 included) ran "
+          f"under torch.cuda.set_sync_debug_mode('error'): no synchronising "
+          f"call; the block-by-block run ends as replay_grid does")
+    from repro_torch.core.backfill import schedule_pass_batched
+    args = capture[0]
+    s_k, f_k = pe.policy_eval_pass_batched(*args)
+    s_p, f_p = schedule_pass_batched(*args)
+    if not (torch.equal(s_k, s_p) and torch.equal(f_k, f_p)):
+        raise SystemExit("[replay] K1 and its plain version differ on a "
+                         "replay pass")
+    launch = raw_launch(torch, pe, args)
+    k1_ms = min(time_ms(torch, launch, 500), time_ms(torch, launch, 500))
+    plain_ms = time_ms(torch, lambda: schedule_pass_batched(*args), 5)
+    bnd, by = k1_bound_ms(torch, args)
+    print(f"[replay] K1 on the first pass of block {w_at + 1} (k={S * P}, "
+          f"J={J}, limit {int(args[7])}, {int(s_k.sum())} starts): bitwise "
+          f"its plain version; {k1_ms * 1e3:.2f} us per launch (CUDA "
+          f"events, back-to-back launches of the C entry), plain "
+          f"{plain_ms:.3f} ms, bound {bnd * 1e3:.3f} us ({by}) on {card}")
+    prof = traced(torch, lambda: bool(des.replay_cond(blocks(window, 4),
+                                                      arrival_t)),
+                  "[replay]", f"blocks {w_at + 1}-{w_at + 4} of the grid "
+                  f"({4 * N} iterations, {S * P} forks)", "pass_kernel")
+    k1_us, k1_count = prof["by_key"].get("pass_kernel", (0.0, 0))
+    k1_mean = k1_us / k1_count if k1_count else float("nan")
+    busy = prof["busy_us"]
+    busy_txt = (f"{100.0 * busy / prof['wall_us']:.1f}%" if busy is not None
+                else "not measured")
+    print(f"[replay] {card}: untraced wall {warm:.3f} s after a warm run "
+          f"({cold:.3f} s cold; reference backend {ref_s:.3f} s); {iters} "
+          f"iterations, {passes} passes, {launches} K1 launches (one a host "
+          f"step: {warm * 1e6 / launches:.1f} us of wall a step), K1 "
+          f"{k1_mean:.2f} us a launch by the profiler; {reads} host reads "
+          f"({N} iterations a read); blocks {w_at + 1}-{w_at + 4} traced: "
+          f"device busy "
+          f"{busy_txt} of the traced wall, "
+          f"{prof['kernels'] / (4 * N):.1f} kernels per iteration, "
+          f"untraced {prof['untraced_us'] / (4 * N):.1f} us per iteration")
+
+    key_pool = parse_pool(DRAS_POOL + ",expf:tau=7200")
+    depth, rows, at = deep
+    keyed = [("Polaris mirror of phase 4",
+              map_state(lambda x: x.expand((len(key_pool),) + x.shape)
+                        .contiguous(), snapshot)),
+             (f"the deepest replay queue, after {at} iterations,",
+              map_state(lambda x: torch.cat([x, x[:1]]), rows))]
+    for what, st in keyed:
+        by_fam, differ, q = key_parity(torch, st.to("cpu"),
+                                       key_pool.spec, key_pool.names)
+        print(f"[C3] {what} ({q} queued): largest key difference cuda "
+              f"vs cpu in ulp: " + ", ".join(f"{f} {u}"
+                                             for f, u in by_fam.items())
+              + f"; priority orders that differ: {differ or 'none'}")
+
+    # the port's host emulator on two (scenario, policy) pairs
+    for s, p in ((0, pool.names.index("FCFS")), (3, 7 + 12)):
+        fork = pool.fork(p)
+        t0 = time.perf_counter()
+        rep = ClusterEmulator(traces[s], POLARIS_NODES, engine=cuda,
+                              max_jobs=J).run(policy_id=fork)
+        host_s = time.perf_counter() - t0
+        n = len(traces[s])
+        for name, arr in (("start_t", rep.start_t), ("end_t", rep.end_t)):
+            grid = getattr(got, name)[s, p, :n].cpu().numpy()
+            if not np.array_equal(grid, arr.astype(np.float32)):
+                raise SystemExit(f"[replay] grid and host emulator differ "
+                                 f"in {name}, scenario {s} {pool.names[p]}")
+        t0 = time.perf_counter()
+        fast = ClusterEmulator(traces[s], POLARIS_NODES, engine=cuda,
+                               max_jobs=J).run(policy_id=fork, fast=True)
+        fast_s = time.perf_counter() - t0
+        if fast.metric_dict() != rep.metric_dict():
+            raise SystemExit(f"[replay] run(fast=True) and the host loop "
+                             f"report differently, {pool.names[p]}")
+        print(f"[replay] scenario {s} x {pool.names[p]}: grid == host "
+              f"emulator (start_t, end_t bitwise over {n} jobs; "
+              f"{rep.n_events} events); run(fast=True) metric_dict == the "
+              f"host loop's; host loop {host_s:.2f} s, fast {fast_s:.2f} s "
+              f"on {card}")
+
+    cli_cuda, line = replay_cli("cuda")
+    cli_cpu, _ = replay_cli("cpu")
+    if cli_cuda != cli_cpu:
+        raise SystemExit("[replay-cli] cuda and cpu tables differ")
+    print(f"[replay-cli] {line}")
+    print(f"[replay-cli] twin_loop --replay-grid 8 (poisson, 48 jobs, 32 "
+          f"nodes, extended pool): cuda and cpu print the same "
+          f"{len(cli_cuda)}-line table and winners")
+    print(f"[replay] phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, k1_mean_us=k1_mean,
+                k1_pass=dict(ms=k1_ms, plain_ms=plain_ms, bound_ms=bnd,
+                             bound_by=by))
+
+
 # ------------------------------------------------- on request: --parent
 def read(path):
     with open(path) as f:
@@ -1561,6 +1863,7 @@ def main() -> int:
                                                       fa: (8, 0)},
                          n_req=4, slots=2, max_seq=4096, lo=256, hi=3072,
                          max_new=8, min_longest=2048)
+    replay = replay_phase(torch, pe, snapshot)
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)
@@ -1575,7 +1878,12 @@ def main() -> int:
              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(card_line())
     print(json.dumps({"kernels": [
-        dict(K1, launches=launches, **k1, library_ms=None),
+        dict(K1, launches=launches + replay["launches"], **k1,
+             library_ms=None,
+             launches_by_path={"polaris_cycles": launches,
+                               "polaris_replay_grid": replay["launches"]},
+             replay_mean_us=replay["k1_mean_us"],
+             replay_pass=replay["k1_pass"]),
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg], **k2),
         dict(K3, launches=rwkv[wk], **k3),

@@ -1,10 +1,13 @@
 """Physical-system side: PBS-like cluster emulator and workloads."""
 from repro_torch.cluster.emulator import ClusterEmulator, FailureSpec, RunReport
-from repro_torch.cluster.workload import (JobSpec, Phase, bursty_trace,
+from repro_torch.cluster.workload import (JobSpec, Phase, ScenarioSet,
+                                          bursty_trace, make_scenario,
                                           paper_synthetic_trace,
-                                          poisson_trace)
+                                          poisson_trace, stack_scenarios,
+                                          trace_to_arrays)
 
 __all__ = [
     "JobSpec", "Phase", "paper_synthetic_trace", "poisson_trace",
-    "bursty_trace", "ClusterEmulator", "FailureSpec", "RunReport",
+    "bursty_trace", "trace_to_arrays", "ScenarioSet", "stack_scenarios",
+    "make_scenario", "ClusterEmulator", "FailureSpec", "RunReport",
 ]

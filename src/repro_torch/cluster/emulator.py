@@ -6,7 +6,10 @@ runtimes, real node counts), emits the PBS hook events (``queuejob`` /
 
 Two scheduler modes, as in the reference:
   * static — the emulator schedules with one fixed policy through a k=1
-    ``DrainEngine`` pass (the twin's own pass);
+    ``DrainEngine`` pass (the twin's own pass).  ``run(..., fast=True)``
+    runs the whole trace as one device replay instead
+    (``DrainEngine.replay``, DESIGN.md §6): the same results bit for bit,
+    this host loop being the oracle it is held against;
   * twin   — scheduling authority is delegated: only jobs the twin
     selects via ``qrun`` start.
 
@@ -14,8 +17,7 @@ Scheduling reasons over *predicted* ends (start + user estimate) while
 completions happen at the true runtime (§3.2).  Job fields are quantized
 to f32 at ingestion and end times are rounded to f32 in f64 host
 arithmetic, exactly as the reference does, so both packages see the same
-event times.  ``run(fast=True)`` (the device replay) is not ported yet
-(ROADMAP A5).
+event times, and the host loop and the device replay agree bitwise.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.cluster.workload import JobSpec
+from repro_torch.cluster.workload import JobSpec, make_scenario
 from repro_torch.core.des import SLOWDOWN_TAU
 from repro_torch.core.engine import DrainEngine
 from repro_torch.core.events import Event, EventBus, EventKind
@@ -96,6 +98,7 @@ class ClusterEmulator:
                  device: DeviceLike = "cuda") -> None:
         self.trace = list(trace)
         self.bus = bus if bus is not None else EventBus()
+        self._external_bus = bus is not None
         self.engine = (engine if engine is not None
                        else DrainEngine(device=device))
         self.total_nodes = int(total_nodes)
@@ -236,8 +239,10 @@ class ClusterEmulator:
         static mode: pass ``policy_id`` — a legacy integer id or a
         parametric ``policies.PolicySpec`` fork (e.g. ``wfp_spec(a=2)``
         to baseline one sweep point); both run through the same k=1
-        engine pass as the twin's simulator.  ``fast=True`` (one device
-        replay of the whole trace) is not ported yet and raises.
+        engine pass as the twin's simulator.  ``fast=True`` replays the
+        whole trace on the engine's device in one batched replay
+        (bitwise the host loop; supports neither failures nor a bus
+        that anyone may observe).
         twin mode:   pass ``on_event`` = twin.pump (the co-simulation
         hook called after every published event).
 
@@ -285,10 +290,19 @@ class ClusterEmulator:
              fast: bool,
              on_quiesce: Optional[Callable[[], bool]] = None) -> RunReport:
         if fast:
-            raise NotImplementedError(
-                "run(fast=True) replays on the device through the replay "
-                "engine, which is not yet ported to repro_torch "
-                "(ROADMAP A5); run the host event loop instead")
+            if policy_id is None:
+                raise ValueError("fast=True requires static mode")
+            if self.failures:
+                raise ValueError(
+                    "fast=True does not support failure scenarios; "
+                    "run the host event loop instead")
+            if self._external_bus or self.bus.has_listeners:
+                raise ValueError(
+                    "fast=True does not stream bus events, but this "
+                    "emulator has an attached bus (someone may consume "
+                    "it, even after the run); run the host event loop "
+                    "instead")
+            return self._run_fast(policy_id)
         while self._heap:
             t, seq, kind, ident = heapq.heappop(self._heap)
             self.now = max(self.now, t)
@@ -349,6 +363,33 @@ class ClusterEmulator:
                 # push fresh end events and the loop resumes.
                 on_quiesce()
 
+        return self._report()
+
+    # ------------------------------------------------------------------
+    def _run_fast(self, policy) -> RunReport:
+        """Static mode on the device: one batched replay instead of one
+        engine pass per host event.  Writes the replayed ground truth
+        back into the host arrays, so that ``_report`` is the same numpy
+        code as after a host-loop run."""
+        scen = make_scenario(self.trace, self.total_nodes,
+                             max_jobs=self.max_jobs)
+        out = self.engine.replay(scen, policy)
+        host = lambda t: t.detach().cpu().numpy()           # noqa: E731
+        n = len(self.trace)
+        # f32 device times are exact in the f64 host arrays (ingestion
+        # quantizes to f32, and all sums stay in f32-exact range)
+        self.start_t[:] = host(out.start_t[0]).astype(np.float64)
+        self.end_t[:] = host(out.end_t[0]).astype(np.float64)
+        self.state[:] = host(out.result.state.jobs.state[0]).astype(np.int64)
+        self.submit_t[:n] = scen.submit_t[0, :n]
+        self.nodes[:n] = scen.nodes[0, :n]
+        self.est[:n] = scen.est_runtime[0, :n]
+        self.true_rt[:n] = scen.true_runtime[0, :n]
+        self.free_nodes = self.total_nodes
+        if n:
+            self.now = float(self.end_t[:n].max())
+        # one arrival + one completion per job, as the host loop counts
+        self.n_events = 2 * n
         return self._report()
 
     # ------------------------------------------------------------------

@@ -6,13 +6,14 @@ in four phases on a 32-node cluster, 5 s inter-arrival.  True runtimes
 are a fraction of the requested walltime (users overestimate, §3.2); the
 twin never sees them.  ``poisson_trace`` / ``bursty_trace`` are the
 generic family: flat Poisson arrivals and the same process under a
-sinusoidal (diurnal) rate.  Scenario stacking for the replay engine is
-not ported yet (ROADMAP A5).
+sinusoidal (diurnal) rate.  ``ScenarioSet`` / ``stack_scenarios`` pad
+and stack traces into the replay engine's scenario axis; ``read_swf`` /
+``write_swf`` handle the Standard Workload Format.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -161,3 +162,253 @@ def bursty_trace(n_jobs: int, total_nodes: int, mean_gap: float,
                                 walltime_range, accuracy, heavy_tail,
                                 "bursty"))
     return jobs
+
+
+# ----------------------------------------------------------------------
+# Scenario stacking — the replay engine's scenario axis (DESIGN.md §6).
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioSet:
+    """S heterogeneous traces padded and stacked to one (S, J) block.
+
+    The device-side input of ``engine.replay`` / ``engine.replay_grid``:
+    slot j of scenario s is job j of trace s (submission order), padding
+    slots carry ``valid=False`` and an ``inf`` arrival so they never
+    enter any simulation.  ``total_nodes`` is per-scenario — scenarios
+    of different cluster sizes ride the same batch.
+
+    Job fields are quantized to f32 — the device dtype — so host-side
+    (f64) and device-side event arithmetic agree bit-for-bit (sums of
+    in-range f32 values are exact in both precisions).
+    """
+
+    submit_t: np.ndarray      # (S, J) f32, 0.0 on padding
+    nodes: np.ndarray         # (S, J) i32, 0 on padding
+    est_runtime: np.ndarray   # (S, J) f32, 0.0 on padding
+    true_runtime: np.ndarray  # (S, J) f32, 0.0 on padding
+    valid: np.ndarray         # (S, J) bool — real (non-padding) jobs
+    n_jobs: np.ndarray        # (S,) i32
+    total_nodes: np.ndarray   # (S,) i32
+
+    @property
+    def n_scenarios(self) -> int:
+        return self.submit_t.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.submit_t.shape[1]
+
+
+def stack_scenarios(traces: Sequence[Sequence[JobSpec]],
+                    total_nodes: Union[int, Sequence[int]],
+                    max_jobs: Optional[int] = None) -> ScenarioSet:
+    """Pad + stack traces into a ``ScenarioSet``.
+
+    ``max_jobs`` defaults to the next power of two above the longest
+    trace (matching ``ClusterEmulator``'s slot sizing; padding slots
+    never influence replay dynamics, so any J ≥ max trace length gives
+    identical results).  Traces must be in submission order — slot
+    index is the arrival cursor — and every job must fit its scenario's
+    cluster *or* the replay will flag that scenario deadlocked.
+    """
+    S = len(traces)
+    if S == 0:
+        raise ValueError("need at least one trace")
+    if isinstance(total_nodes, (int, np.integer)):
+        totals = [int(total_nodes)] * S
+    else:
+        totals = [int(t) for t in total_nodes]
+        if len(totals) != S:
+            raise ValueError(
+                f"{len(totals)} total_nodes for {S} traces")
+    longest = max(len(t) for t in traces)
+    if max_jobs is None:
+        max_jobs = max(64, 1 << int(np.ceil(np.log2(max(longest, 1) + 1))))
+    if longest > max_jobs:
+        raise ValueError(f"longest trace has {longest} jobs > {max_jobs}")
+
+    shape = (S, max_jobs)
+    out = ScenarioSet(
+        submit_t=np.zeros(shape, dtype=np.float32),
+        nodes=np.zeros(shape, dtype=np.int32),
+        est_runtime=np.zeros(shape, dtype=np.float32),
+        true_runtime=np.zeros(shape, dtype=np.float32),
+        valid=np.zeros(shape, dtype=bool),
+        n_jobs=np.asarray([len(t) for t in traces], dtype=np.int32),
+        total_nodes=np.asarray(totals, dtype=np.int32),
+    )
+    for s, trace in enumerate(traces):
+        ids = [j.job_id for j in trace]
+        if ids != list(range(len(trace))):
+            # slot j IS job j: the host emulator keys its arrays by
+            # job_id, the replay by position — permuted ids would make
+            # the two silently disagree
+            raise ValueError(
+                f"trace {s}: job_id must equal trace position")
+        sub = np.asarray([j.submit_t for j in trace], dtype=np.float32)
+        if np.any(np.diff(sub) < 0):
+            raise ValueError(f"trace {s} not in submission order")
+        n = len(trace)
+        out.submit_t[s, :n] = sub
+        out.nodes[s, :n] = [j.nodes for j in trace]
+        out.est_runtime[s, :n] = [j.est_runtime for j in trace]
+        out.true_runtime[s, :n] = [j.true_runtime for j in trace]
+        out.valid[s, :n] = True
+    return out
+
+
+def make_scenario(trace: Sequence[JobSpec], total_nodes: int,
+                  max_jobs: Optional[int] = None) -> ScenarioSet:
+    """One trace as an S=1 ``ScenarioSet`` (``engine.replay``'s input)."""
+    return stack_scenarios([trace], total_nodes, max_jobs=max_jobs)
+
+
+def split_scenarios(rng: np.random.Generator,
+                    trace_fn: Callable[[np.random.Generator],
+                                       Sequence[JobSpec]],
+                    n_train: int, n_heldout: int,
+                    total_nodes: Union[int, Sequence[int]],
+                    max_jobs: Optional[int] = None,
+                    ) -> Tuple[ScenarioSet, ScenarioSet]:
+    """Deterministic train/held-out split for policy training.
+
+    Draws ``n_train + n_heldout`` traces SEQUENTIALLY from the single
+    caller-owned ``rng`` (``trace_fn(rng)`` per trace, the generators'
+    ``rng=`` idiom), then partitions by index: the first ``n_train``
+    traces are the training set, the last ``n_heldout`` the held-out
+    set.  The two sets are disjoint segments of one stream — an index
+    partition, not a re-draw — so train/eval leakage is structurally
+    impossible, and the same rng state reproduces the same split
+    bitwise.  Both sets are padded to a COMMON ``max_jobs`` so a θ
+    evaluated on either sees identical table shapes (one compiled
+    replay shape per S).
+    """
+    if n_train < 1 or n_heldout < 1:
+        raise ValueError(
+            f"need n_train >= 1 and n_heldout >= 1, got "
+            f"{n_train}/{n_heldout}")
+    traces = [list(trace_fn(rng)) for _ in range(n_train + n_heldout)]
+    if max_jobs is None:
+        longest = max(len(t) for t in traces)
+        max_jobs = max(64, 1 << int(np.ceil(np.log2(longest + 1))))
+    if isinstance(total_nodes, (int, np.integer)):
+        tn_train: Union[int, Sequence[int]] = int(total_nodes)
+        tn_held: Union[int, Sequence[int]] = int(total_nodes)
+    else:
+        totals = [int(t) for t in total_nodes]
+        if len(totals) != n_train + n_heldout:
+            raise ValueError(
+                f"{len(totals)} total_nodes for {n_train + n_heldout} "
+                f"traces")
+        tn_train, tn_held = totals[:n_train], totals[n_train:]
+    return (stack_scenarios(traces[:n_train], tn_train, max_jobs=max_jobs),
+            stack_scenarios(traces[n_train:], tn_held, max_jobs=max_jobs))
+
+
+def slice_scenarios(scenarios: ScenarioSet, start: int,
+                    stop: int) -> ScenarioSet:
+    """Rows ``[start, stop)`` as a ``ScenarioSet`` of numpy VIEWS — no
+    copies, so cutting a large scenario set into fixed-size blocks
+    costs nothing on the host."""
+    cut = lambda x: x[start:stop]
+    return ScenarioSet(
+        submit_t=cut(scenarios.submit_t),
+        nodes=cut(scenarios.nodes),
+        est_runtime=cut(scenarios.est_runtime),
+        true_runtime=cut(scenarios.true_runtime),
+        valid=cut(scenarios.valid),
+        n_jobs=cut(scenarios.n_jobs),
+        total_nodes=cut(scenarios.total_nodes),
+    )
+
+
+def pad_scenarios(scenarios: ScenarioSet, multiple: int) -> ScenarioSet:
+    """Pad the scenario axis up to the next multiple of ``multiple``
+    with INERT rows: ``valid`` all-False (so every arrival is ``inf``
+    and the fork is born drained — it never becomes live, never queues
+    a job, and therefore never influences the lock-step dynamic pass
+    bound of real forks), zero jobs, ``total_nodes=1`` (keeps the
+    per-scenario metric denominators finite; padded-row metrics are
+    dropped before selection anyway).  Identity when S already divides.
+    """
+    S = scenarios.n_scenarios
+    if multiple <= 0:
+        raise ValueError(f"multiple must be positive, got {multiple}")
+    pad = (-S) % multiple
+    if pad == 0:
+        return scenarios
+    J = scenarios.capacity
+    z = lambda dt: np.zeros((pad, J), dtype=dt)
+    cat = np.concatenate
+    return ScenarioSet(
+        submit_t=cat([scenarios.submit_t, z(np.float32)]),
+        nodes=cat([scenarios.nodes, z(np.int32)]),
+        est_runtime=cat([scenarios.est_runtime, z(np.float32)]),
+        true_runtime=cat([scenarios.true_runtime, z(np.float32)]),
+        valid=cat([scenarios.valid, z(bool)]),
+        n_jobs=cat([scenarios.n_jobs,
+                    np.zeros((pad,), dtype=np.int32)]),
+        total_nodes=cat([scenarios.total_nodes,
+                         np.ones((pad,), dtype=np.int32)]),
+    )
+
+
+# ----------------------------------------------------------------------
+# Conversions & SWF I/O
+# ----------------------------------------------------------------------
+
+def trace_to_arrays(trace: Sequence[JobSpec]) -> Dict[str, np.ndarray]:
+    return {
+        "submit_t": np.array([j.submit_t for j in trace], dtype=np.float32),
+        "nodes": np.array([j.nodes for j in trace], dtype=np.int32),
+        "est_runtime": np.array([j.est_runtime for j in trace],
+                                dtype=np.float32),
+        "true_runtime": np.array([j.true_runtime for j in trace],
+                                 dtype=np.float32),
+    }
+
+
+def write_swf(trace: Sequence[JobSpec], path: str) -> None:
+    """Minimal Standard Workload Format writer (fields we use)."""
+    with open(path, "w") as f:
+        f.write("; SchedTwin synthetic trace\n")
+        for j in trace:
+            # id submit wait run nproc cpu mem reqproc reqtime ...
+            f.write(f"{j.job_id + 1} {j.submit_t:.0f} -1 "
+                    f"{j.true_runtime:.0f} {j.nodes} -1 -1 "
+                    f"{j.nodes} {j.est_runtime:.0f} -1\n")
+
+
+def read_swf(path: str, max_jobs: Optional[int] = None) -> List[JobSpec]:
+    jobs: List[JobSpec] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(";"):
+                continue
+            parts = line.split()
+            jid = len(jobs)
+            submit = float(parts[1])
+            run = max(1.0, float(parts[3]))
+            nproc = int(parts[7]) if int(parts[7]) > 0 else int(parts[4])
+            req = float(parts[8]) if float(parts[8]) > 0 else run
+            jobs.append(JobSpec(jid, submit, max(1, nproc), req, run, "swf"))
+            if max_jobs is not None and len(jobs) >= max_jobs:
+                break
+    return jobs
+
+
+def trace_stats(trace: Sequence[JobSpec]) -> Dict[str, float]:
+    """Figure-1-style distribution summary."""
+    nodes = np.array([j.nodes for j in trace])
+    rt = np.array([j.true_runtime for j in trace])
+    return {
+        "n_jobs": len(trace),
+        "nodes_min": float(nodes.min()), "nodes_p50": float(np.median(nodes)),
+        "nodes_max": float(nodes.max()),
+        "runtime_min_s": float(rt.min()),
+        "runtime_p50_s": float(np.median(rt)),
+        "runtime_max_s": float(rt.max()),
+        "node_seconds": float((nodes * rt).sum()),
+    }

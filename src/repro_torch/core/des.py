@@ -6,16 +6,23 @@
   a leading axis and advanced in lock-step with per-fork done/dead
   masks.  Keys, argsort and the scheduling pass run once per event for
   the whole batch, the pass through a pluggable backend
-  (``repro_torch.core.engine``).
+  (``repro_torch.core.engine``).  Future arrivals are not simulated
+  (§3.2): the horizon holds only predicted job ends.  The loop bound is
+  ``max_jobs + 1``.
+* ``simulate_replay_batched`` — the drain generalized into a trace
+  replay (DESIGN.md §6): each fork also carries an arrival cursor into
+  its own arrival timeline and the ground-truth runtimes.  Every step
+  advances one fork-local event, ``min(next arrival, next actual
+  end)``; completions retire at their true ends while the pass keeps
+  reasoning over predicted ends.  Bitwise the host emulator's static
+  mode.
 
-Future arrivals are not simulated (§3.2): the horizon holds only
-predicted job ends.  The loop bound is ``max_jobs + 1``.
-
-The reference loops on the device (``lax.while_loop``).  Here the loop
-is a Python ``while`` whose condition costs exactly one device-to-host
-read per iteration (``bool(active.any())``); the body launches only
-asynchronous work.  The trace replay (``simulate_replay_batched``) is
-not ported yet (ROADMAP A5).
+The reference loops on the device (``lax.while_loop``).  Here both loops
+are Python loops.  The drain's condition costs one device-to-host read
+per iteration (``bool(active.any())``).  The replay runs blocks of
+``REPLAY_BLOCK`` iterations and reads its condition once per block: its
+body carries the condition as a device flag and changes nothing once the
+flag is down, so no iteration inside a block waits for the host.
 """
 from __future__ import annotations
 
@@ -156,6 +163,191 @@ def simulate_to_drain_batched(states: SimState,
                        pass_invocations=torch.full((k,), it,
                                                    dtype=torch.int32,
                                                    device=dev))
+
+
+# ----------------------------------------------------------------------
+# Scenario-vectorized trace replay (DESIGN.md §6).
+# ----------------------------------------------------------------------
+
+#: Iterations the replay runs between two reads of its end condition.
+REPLAY_BLOCK = 32
+
+_ORD_NONE = 2**31 - 1     # start order of a slot that has not started
+
+
+class ReplayResult(NamedTuple):
+    state: SimState              # final state: start_t/end_t are ACTUAL
+    events: torch.Tensor         # i32 (k,) — events processed per fork
+    iters: torch.Tensor          # i32 scalar — lock-step iterations
+    deadlocked: torch.Tensor     # bool (k,) — a queued job can never run
+    pass_invocations: torch.Tensor  # i32 scalar — scheduling passes the
+                                    # reference runs (elision counted)
+
+
+class ReplayCarry(NamedTuple):
+    """The replay loop's state, all of it on the device."""
+    st: SimState
+    cursor: torch.Tensor      # i64 (k,) — next arrival slot
+    true_end: torch.Tensor    # f32 (k, J) — actual end of started jobs
+    start_ord: torch.Tensor   # i32 (k, J) — it·(J+1) + slot at start
+    it: torch.Tensor          # i32 scalar — iterations where work was left
+    dead: torch.Tensor        # bool (k,)
+    events: torch.Tensor      # i32 (k,)
+    passes: torch.Tensor      # i32 scalar
+
+
+def replay_init(states: SimState) -> ReplayCarry:
+    k, J = states.jobs.state.shape
+    dev = states.now.device
+    return ReplayCarry(
+        st=states,
+        cursor=torch.zeros((k,), dtype=torch.int64, device=dev),
+        true_end=torch.full((k, J), torch.inf, dtype=torch.float32,
+                            device=dev),
+        start_ord=torch.full((k, J), _ORD_NONE, dtype=torch.int32,
+                             device=dev),
+        it=torch.zeros((), dtype=torch.int32, device=dev),
+        dead=torch.zeros((k,), dtype=torch.bool, device=dev),
+        events=torch.zeros((k,), dtype=torch.int32, device=dev),
+        passes=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _next_arrival(cursor: torch.Tensor, arrival_t: torch.Tensor):
+    J = arrival_t.shape[1]
+    cur = cursor.clamp(0, J - 1)
+    t = torch.gather(arrival_t, 1, cur[:, None])[:, 0]
+    return torch.where(cursor < J, t, torch.inf), cur
+
+
+def _work_left(c: ReplayCarry, next_arr: torch.Tensor,
+               running_any: torch.Tensor, queued_any: torch.Tensor
+               ) -> torch.Tensor:
+    work = torch.isfinite(next_arr) | running_any | queued_any
+    max_iters = 2 * c.true_end.shape[1] + 2
+    return (c.it < max_iters) & (work & ~c.dead).any()
+
+
+def replay_cond(c: ReplayCarry, arrival_t: torch.Tensor) -> torch.Tensor:
+    """The reference's loop condition as a device bool: some live fork
+    has an arrival ahead, a running job or a queued job, and fewer than
+    2·J + 2 iterations ran.  Monotone: once down it stays down, and a
+    step taken while it is down changes nothing."""
+    jstate = c.st.jobs.state
+    return _work_left(c, _next_arrival(c.cursor, arrival_t)[0],
+                      (jstate == RUNNING).any(1), (jstate == QUEUED).any(1))
+
+
+def make_replay_step(arrival_t: torch.Tensor, true_rt: torch.Tensor,
+                     order_fn: Callable[[SimState], torch.Tensor],
+                     pass_fn: BatchedPassFn, dynamic_bounds: bool = True,
+                     elide_empty: bool = True
+                     ) -> Callable[[ReplayCarry], ReplayCarry]:
+    """One lock-step replay iteration as a function of the carry.  It
+    reads nothing back to the host and its shapes never depend on the
+    data, so a block of steps queues on the device without a wait.
+
+    Elision: the reference skips keys, argsort and pass behind
+    ``lax.cond(limit > 0)``.  Here they run on every step and the starts
+    are masked with ``live`` (the pass starts only queued jobs, so when
+    no live fork has one the mask empties it: the same bits).
+    ``pass_invocations`` still counts the reference's passes: steps
+    where the condition held and, with ``elide_empty``, ``limit > 0``."""
+    J = arrival_t.shape[1]
+    slots = torch.arange(J, dtype=torch.int32, device=arrival_t.device)
+
+    def step(c: ReplayCarry) -> ReplayCarry:
+        jobs = c.st.jobs
+        next_arr, cur = _next_arrival(c.cursor, arrival_t)
+        running = jobs.state == RUNNING
+        queued_any = (jobs.state == QUEUED).any(1)
+        go = _work_left(c, next_arr, running.any(1), queued_any)  # flag
+
+        # ---- pick each fork's next event -----------------------------
+        te = torch.where(running, c.true_end, torch.inf)
+        next_end = te.amin(1)
+        # among simultaneous actual ends, retire the earliest started
+        # (the host heap pops end events in push == start order)
+        at_min = running & (te <= next_end[:, None])
+        j_end = torch.argmin(torch.where(at_min, c.start_ord, _ORD_NONE), 1)
+        is_arr = next_arr <= next_end          # equal times: arrival first
+        t_ev = torch.minimum(next_arr, next_end)
+        has_event = torch.isfinite(t_ev)
+        dead = c.dead | (go & ~has_event & queued_any)
+        live = has_event & ~dead & go
+
+        # ---- inject the arrival (slot = cursor) ----------------------
+        arr = live & is_arr
+        hit_arr = (slots[None, :] == cur[:, None]) & arr[:, None]
+        jstate = torch.where(hit_arr, QUEUED, jobs.state)
+        cursor = c.cursor + arr.to(torch.int64)
+
+        # ---- retire the completion at its TRUE end time --------------
+        fin = live & ~is_arr
+        hit_end = (slots[None, :] == j_end[:, None]) & fin[:, None]
+        jstate = torch.where(hit_end, DONE, jstate)
+        end_t = torch.where(hit_end, c.true_end, jobs.end_t)
+        freed = torch.where(hit_end, jobs.nodes, 0).sum(1, dtype=torch.int32)
+        st = c.st._replace(
+            jobs=jobs._replace(state=jstate, end_t=end_t),
+            free_nodes=c.st.free_nodes + freed,
+            now=torch.where(live, t_ev, c.st.now))
+
+        # ---- one scheduling pass on the whole batch ------------------
+        limit = pass_rank_limit(st, live)
+        started = pass_fn(st, order_fn(st),
+                          limit if dynamic_bounds else None) & live[:, None]
+        st = apply_starts(st, started)
+        true_end = torch.where(started, st.now[:, None] + true_rt,
+                               c.true_end)
+        start_ord = torch.where(started, c.it * (J + 1) + slots[None, :],
+                                c.start_ord)
+        ran = go & (limit[0] > 0) if elide_empty else go
+        return ReplayCarry(
+            st=st, cursor=cursor, true_end=true_end, start_ord=start_ord,
+            it=c.it + go.to(torch.int32), dead=dead,
+            events=c.events + live.to(torch.int32),
+            passes=c.passes + ran.to(torch.int32))
+    return step
+
+
+def simulate_replay_batched(states: SimState, arrival_t: torch.Tensor,
+                            true_rt: torch.Tensor,
+                            order_fn: Callable[[SimState], torch.Tensor],
+                            pass_fn: BatchedPassFn,
+                            dynamic_bounds: bool = True,
+                            elide_empty: bool = True) -> ReplayResult:
+    """Replay k trace forks event by event in lock-step.
+
+    ``states`` is a batched ``SimState`` whose job table is preloaded
+    (submit_t/nodes/est_runtime filled for every slot) but entirely
+    INVALID: slots become visible to the scheduler only when their
+    arrival is injected.  ``arrival_t`` (k, J) is each fork's arrival
+    timeline (non-decreasing, ``inf`` on padding) and ``true_rt`` (k, J)
+    the ground-truth runtimes the scheduler never sees.
+
+    Each iteration processes one event per live fork, with the host
+    emulator's heap order: arrivals win ties with ends, simultaneous
+    ends retire in start order, completions retire at ``start +
+    true_rt`` while running jobs keep advertising ``start + est`` to
+    the pass.  A fork with no next event freezes: done if nothing is
+    queued, deadlocked if a queued job remains.  The bound is 2·J + 2
+    iterations.  The host runs blocks of ``REPLAY_BLOCK`` steps, never
+    past that bound, and reads the condition once after each block."""
+    J = states.jobs.capacity
+    max_iters = 2 * J + 2
+    step = make_replay_step(arrival_t, true_rt, order_fn, pass_fn,
+                            dynamic_bounds, elide_empty)
+    c = replay_init(states)
+    done = 0
+    while done < max_iters:
+        n = min(REPLAY_BLOCK, max_iters - done)
+        for _ in range(n):
+            c = step(c)
+        done += n
+        if not bool(replay_cond(c, arrival_t)):   # the block's one read
+            break
+    return ReplayResult(state=c.st, events=c.events, iters=c.it,
+                        deadlocked=c.dead, pass_invocations=c.passes)
 
 
 class DrainMetrics(NamedTuple):

@@ -19,13 +19,19 @@ Backends (``PASS_BACKENDS``):
   * ``auto``      — ``cuda`` on a CUDA device, ``reference`` on the CPU.
 
 The engine owns a device (default ``cuda``): ``decide``/``drain`` copy
-their state and pool there.  Ensembles, fans, races, replay and θ
-training are not ported yet (ROADMAP A5–A9).
+their state and pool there.  It also hosts the scenario-vectorized
+replay (DESIGN.md §6): ``replay`` / ``replay_grid`` drive
+``des.simulate_replay_batched`` over a ``workload.ScenarioSet``, with an
+S-scenario axis stacked on the P-policy fork axis (fork f = s·P + p), so
+a whole baseline grid is one batched replay.  Ensembles (ROADMAP A6),
+fans and races (A7), the sharded streamers (A8) and θ training (A9) are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -34,12 +40,14 @@ import torch
 from repro_torch.core import scoring
 from repro_torch.core.backfill import (priority_order, schedule_pass_batched,
                                        static_priority_order)
-from repro_torch.core.des import (DrainMetrics, DrainResult, broadcast_state,
+from repro_torch.core.des import (DrainMetrics, DrainResult, ReplayResult,
+                                  broadcast_state, simulate_replay_batched,
                                   simulate_to_drain_batched, state_metrics)
 from repro_torch.core.objective import (DEFAULT_OBJECTIVE, Objective,
                                         ObjectiveLike, resolve_goal)
 from repro_torch.core.policies import PolicySpec, time_invariant_mask
-from repro_torch.core.state import QUEUED, SimState, map_state
+from repro_torch.core.state import (QUEUED, TIME_NONE, JobTable, SimState,
+                                    map_state)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import policy_eval as _pe
 
@@ -54,6 +62,14 @@ def pool_size(pool: EnginePool) -> int:
     if isinstance(pool, PolicySpec):
         return pool.family.shape[0]
     return pool.shape[0]
+
+
+def tile_pool(pool: EnginePool, n: int) -> EnginePool:
+    """Repeat a pool n times along the fork axis (one pool copy per
+    replay scenario)."""
+    if isinstance(pool, PolicySpec):
+        return PolicySpec(pool.family.repeat(n), pool.theta.repeat(n, 1))
+    return pool.repeat(n)
 
 
 def as_pool(policy) -> EnginePool:
@@ -82,6 +98,24 @@ class Decision(NamedTuple):
     metrics: DrainMetrics        # (k,)-leading metrics for telemetry
     deadlocked: torch.Tensor     # (k,) bool
     cost_terms: Optional[Dict[str, torch.Tensor]] = None  # term -> (k,)
+
+
+class ReplayOutcome(NamedTuple):
+    """A replayed (scenario × policy) grid (DESIGN.md §6).
+
+    Leading axes are (S, P) from ``replay_grid`` (fork f = s·P + p) and
+    (P,) from ``replay``.  ``start_t``/``end_t`` are ACTUAL times;
+    ``metrics`` score true outcomes over each scenario's real slots;
+    ``costs`` are the goal's costs over the policy axis (deadlocked
+    forks at +inf) and ``best`` its per-scenario argmin."""
+    start_t: torch.Tensor        # f32 (..., J)
+    end_t: torch.Tensor          # f32 (..., J)
+    metrics: DrainMetrics        # (...)-leading
+    deadlocked: torch.Tensor     # bool (...)
+    events: torch.Tensor         # i32 (...) — events processed per fork
+    result: ReplayResult         # the raw flat (k = S·P) replay result
+    costs: Optional[torch.Tensor] = None   # (..., P)
+    best: Optional[torch.Tensor] = None    # per-scenario pool index
 
 
 # ----------------------------------------------------------------------
@@ -226,12 +260,16 @@ class DrainEngine:
         queued rank each event (``des.pass_rank_limit``) — bit-exact.
     hoist_static : hoist the argsort of time-invariant forks out of the
         event loop — bit-exact.
+    elide_empty : count a replay iteration's pass only where some live
+        fork has a queued job (the reference skips the others; here
+        they run, masked, which gives the same bits) — bit-exact.
     """
 
     backend: str = "auto"
     device: DeviceLike = "cuda"
     dynamic_bounds: bool = True
     hoist_static: bool = True
+    elide_empty: bool = True
 
     def __post_init__(self) -> None:
         dev = resolve_device(self.device)
@@ -280,6 +318,42 @@ class DrainEngine:
         order = batched_priority_order(states, pool)
         return self.pass_fn()(states, order, None)[0]
 
+    # -- trace replay (DESIGN.md §6) -----------------------------------
+    def replay(self, scenario, pool, objective: ObjectiveLike = None, *,
+               weights: Optional[scoring.ScoreWeights] = None
+               ) -> ReplayOutcome:
+        """Replay ONE scenario (an S=1 ``workload.ScenarioSet``) under
+        every fork of ``pool``: a (P,)-leading outcome, bitwise P host
+        emulator static-mode runs.  ``objective`` drives ``costs`` and
+        ``best`` (the times do not depend on it)."""
+        S = int(scenario.total_nodes.shape[0])
+        if S != 1:
+            raise ValueError(
+                f"replay takes one scenario (got {S}); use replay_grid")
+        return self._replay(scenario, pool, objective, weights, grid=False)
+
+    def replay_grid(self, scenarios, pool, objective: ObjectiveLike = None,
+                    *, weights: Optional[scoring.ScoreWeights] = None
+                    ) -> ReplayOutcome:
+        """The full (scenario × policy) grid, S·P forks in one batched
+        replay: fork f = s·P + p, outcome axes (S, P); ``best[s]`` is the
+        pool index the goal picks for scenario s."""
+        return self._replay(scenarios, pool, objective, weights, grid=True)
+
+    def _replay(self, scenarios, pool, objective, weights, grid: bool
+                ) -> ReplayOutcome:
+        goal = resolve_goal(objective, weights)
+        pool = as_pool(pool)
+        S = int(scenarios.total_nodes.shape[0])
+        P = pool_size(pool)
+        plan = self.plan(pool)                 # fork f = s·P + p
+        res, metrics = _replay_impl(
+            self, *replay_inputs(scenarios, pool, self.device),
+            plan * S if plan is not None else None)
+        costs, best = grid_select(goal, metrics, res.deadlocked, P)
+        return _shape_outcome(res, metrics, (S, P) if grid else (P,),
+                              costs, best)
+
 
 def _drain_impl(engine: DrainEngine, states: SimState, pool: EnginePool,
                 plan: HoistPlan = None) -> DrainResult:
@@ -309,4 +383,115 @@ def _decide_impl(engine: DrainEngine, state: SimState, pool: EnginePool,
         deadlocked=res.deadlocked,
         # sorted like the reference's jitted dict output
         cost_terms=dict(sorted(objective.cost_terms(metrics).items())),
+    )
+
+
+# ----------------------------------------------------------------------
+# Scenario-vectorized replay (DESIGN.md §6).
+# ----------------------------------------------------------------------
+
+def _assemble_replay_inputs(submit, nodes, est, true_rt, valid, totals,
+                            pool: EnginePool, P: int):
+    """Scenario-row tensors (S, J) -> the flat (k = S·P) replay inputs:
+    each row repeats P times (fork f = s·P + p), the pool tiles once per
+    row, and the job table is preloaded but fully INVALID."""
+    rep = lambda x: x.repeat_interleave(P, dim=0)          # noqa: E731
+    submit = rep(submit)                                    # (S*P, J)
+    valid = rep(valid)
+    k, J = submit.shape
+    dev = submit.device
+    jobs = JobTable(
+        submit_t=submit,
+        nodes=rep(nodes),
+        est_runtime=rep(est),
+        start_t=torch.full((k, J), TIME_NONE, dtype=torch.float32,
+                           device=dev),
+        end_t=torch.full((k, J), TIME_NONE, dtype=torch.float32,
+                         device=dev),
+        state=torch.zeros((k, J), dtype=torch.int32, device=dev),  # INVALID
+    )
+    states = SimState(jobs=jobs, free_nodes=rep(totals),
+                      total_nodes=rep(totals),
+                      now=torch.zeros((k,), dtype=torch.float32, device=dev))
+    arrival_t = torch.where(valid, submit, torch.inf)
+    S = totals.shape[0]
+    return states, arrival_t, rep(true_rt), tile_pool(pool, S), valid
+
+
+#: Per-``ScenarioSet`` memo of the host-to-device conversions of its six
+#: arrays, one entry per device.  Keyed on object identity and evicted by
+#: ``weakref.finalize`` when the set dies, never on a reused id.  Callers
+#: must not mutate a set's arrays after its first replay.
+_SCENARIO_ARRAY_CACHE: Dict[Tuple[int, str], Tuple] = {}
+
+
+def _scenario_arrays(scenarios, device: torch.device) -> Tuple:
+    key = (id(scenarios), str(device))
+    hit = _SCENARIO_ARRAY_CACHE.get(key)
+    if hit is not None:
+        return hit
+    cvt = lambda x, dt: torch.tensor(                      # noqa: E731
+        np.asarray(x), dtype=dt, device=device)
+    arrs = (cvt(scenarios.submit_t, torch.float32),
+            cvt(scenarios.nodes, torch.int32),
+            cvt(scenarios.est_runtime, torch.float32),
+            cvt(scenarios.true_runtime, torch.float32),
+            cvt(scenarios.valid, torch.bool),
+            cvt(scenarios.total_nodes, torch.int32))
+    try:
+        weakref.finalize(scenarios, _SCENARIO_ARRAY_CACHE.pop, key, None)
+    except TypeError:
+        return arrs          # not weak-referenceable: serve uncached
+    _SCENARIO_ARRAY_CACHE[key] = arrs
+    return arrs
+
+
+def replay_inputs(scenarios, pool: EnginePool, device: DeviceLike):
+    """Device inputs of the flat (k = S·P) replay batch from a
+    ``workload.ScenarioSet``-shaped object: (states, arrival_t, true_rt,
+    tiled pool, valid).  The conversion of the scenario arrays is
+    memoized per set (``_scenario_arrays``); the tiling runs per call."""
+    dev = torch.device(device)
+    return _assemble_replay_inputs(*_scenario_arrays(scenarios, dev),
+                                   _pool_to(pool, dev), pool_size(pool))
+
+
+def grid_select(objective: Objective, metrics: DrainMetrics,
+                deadlocked: torch.Tensor, P: int):
+    """Per-objective selection over a flat (k = S·P) replay batch: the
+    metric fields reshaped to (S, P), the goal's costs over the policy
+    axis (deadlocked forks at +inf), and the argmin per scenario."""
+    grid = DrainMetrics(*(m.reshape(-1, P) for m in metrics))
+    costs = objective.costs(grid)                               # (S, P)
+    costs = torch.where(deadlocked.reshape(-1, P), torch.inf, costs)
+    return costs, torch.argmin(costs, dim=-1)
+
+
+def _replay_impl(engine: DrainEngine, states: SimState,
+                 arrival_t: torch.Tensor, true_rt: torch.Tensor,
+                 pool: EnginePool, valid: torch.Tensor,
+                 plan: HoistPlan = None):
+    # every slot with a finite arrival will be queued at some point (plus
+    # any slot already queued at entry): the hoist domain
+    ever_queued = torch.isfinite(arrival_t) | (states.jobs.state == QUEUED)
+    order_fn = make_order_fn(states, pool, plan, ever_queued=ever_queued)
+    res = simulate_replay_batched(
+        states, arrival_t, true_rt, order_fn, engine.pass_fn(),
+        dynamic_bounds=engine.dynamic_bounds,
+        elide_empty=engine.elide_empty)
+    return res, state_metrics(res.state, valid, true_rt)
+
+
+def _shape_outcome(res: ReplayResult, metrics: DrainMetrics, shape,
+                   costs: torch.Tensor, best: torch.Tensor) -> ReplayOutcome:
+    rs = lambda x: x.reshape(shape + x.shape[1:])          # noqa: E731
+    return ReplayOutcome(
+        start_t=rs(res.state.jobs.start_t),
+        end_t=rs(res.state.jobs.end_t),
+        metrics=DrainMetrics(*(rs(m) for m in metrics)),
+        deadlocked=rs(res.deadlocked),
+        events=rs(res.events),
+        result=res,
+        costs=costs.reshape(shape),
+        best=best.reshape(shape[:-1]),
     )

@@ -6,17 +6,24 @@
     python -m repro_torch.launch.twin_loop --failures 2     # fault injection
     python -m repro_torch.launch.twin_loop \\
         --pool "extended,wfp:a=1..5x5:tau=600..7200x5"     # k=32 DRAS sweep
+    python -m repro_torch.launch.twin_loop --replay-grid 8 \\
+        --trace poisson --jobs 48 --pool extended          # S x P grid
 
-Port of the co-simulation mode of ``repro.launch.twin_loop``: same
-flags, same trace generators and the same printed report.  ``--device``
-(default ``cuda``) picks where the what-if engine runs; ``--backend
-auto`` takes the CUDA kernel on ``cuda`` and the plain pass on ``cpu``.
-The replay grid, training, fans, races, ensembles, chaos and snapshots
-are not ported yet and are rejected.
+Port of the co-simulation and plain ``--replay-grid`` modes of
+``repro.launch.twin_loop``: same flags, same trace generators and the
+same printed report.  ``--replay-grid S`` skips the co-simulation and
+evaluates the (S scenarios × pool) baseline grid in one batched replay
+(``engine.replay_grid``), printing per-policy metrics over the
+scenarios and each scenario's winner under ``--objective``.
+``--device`` (default ``cuda``) picks where the engine runs;
+``--backend auto`` takes the CUDA kernel on ``cuda`` and the plain pass
+on ``cpu``.  Training, fans, races, ensembles, chaos, snapshots and the
+sharded or block-streamed grid are not ported yet and are rejected.
 """
 from __future__ import annotations
 
 import argparse
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -26,6 +33,7 @@ from repro_torch.cluster.emulator import (ClusterEmulator, FailureSpec,
 from repro_torch.cluster.workload import (JobSpec, bursty_trace,
                                           paper_synthetic_trace,
                                           poisson_trace)
+from repro_torch.configs.schedtwin import ReplayGridConfig
 from repro_torch.core.engine import PASS_BACKENDS, DrainEngine
 from repro_torch.core.events import EventBus
 from repro_torch.core.objective import Objective, validate_objective
@@ -34,10 +42,11 @@ from repro_torch.core.twin import SchedTwin
 
 #: Flags of the reference CLI whose modes are not ported yet, with the
 #: ROADMAP item that brings each.
-_UNPORTED = {"replay_grid": "--replay-grid (A5)", "train": "--train (A9)",
-             "fan": "--fan (A7)", "race": "--race (A7)",
-             "ensemble": "--ensemble (A6)", "chaos": "--chaos (A9)",
-             "snapshot_dir": "--snapshot-dir (A9)"}
+_UNPORTED = {"train": "--train (A9)", "fan": "--fan (A7)",
+             "race": "--race (A7)", "ensemble": "--ensemble (A6)",
+             "chaos": "--chaos (A9)", "snapshot_dir": "--snapshot-dir (A9)",
+             "shard": "--shard (A8)", "block_size": "--block-size (A8)",
+             "prefetch": "--prefetch (A8)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,8 +73,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the what-if engine runs")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replay-grid", type=int, default=0, metavar="S",
+                    help="evaluate an S-scenario x pool baseline grid in "
+                         "one batched replay instead of running the twin "
+                         "co-simulation")
     # reference modes not ported yet: accepted only to be rejected
-    ap.add_argument("--replay-grid", type=int, default=0,
+    ap.add_argument("--shard", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--block-size", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--prefetch", type=int, default=2,
                     help=argparse.SUPPRESS)
     ap.add_argument("--train", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--fan", type=int, default=0, help=argparse.SUPPRESS)
@@ -149,12 +165,58 @@ def print_report(report: RunReport, twin: SchedTwin, bus: EventBus) -> None:
     print(f"bus health: {bus.health()}")
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    ap = build_parser()
-    args = ap.parse_args(argv)
+def replay_grid(args, engine: DrainEngine, goal: Objective) -> None:
+    """--replay-grid: the S × P baseline grid as one batched replay, with
+    the per-scenario policy selection under ``goal``."""
+    cfg = ReplayGridConfig(scenarios=args.replay_grid, trace=args.trace,
+                           n_jobs=args.jobs, total_nodes=args.nodes,
+                           pool=args.pool, objective=goal, seed=args.seed,
+                           backend=engine.backend, device=engine.device)
+    pool = cfg.make_pool()
+    scen = cfg.make_scenarios()
+    t0 = time.perf_counter()
+    out = engine.replay_grid(scen, pool.spec, cfg.make_objective())
+    host = lambda t: t.detach().cpu().numpy()              # noqa: E731
+    host(out.end_t)                                        # wait for it
+    wall = time.perf_counter() - t0
+    S, P = out.deadlocked.shape
+    print(f"replay grid: S={S} scenarios x P={P} policies "
+          f"({S * P} forks, one device computation) in {wall:.2f}s")
+    print(f"{'policy':>16s} {'avg_wait':>9s} {'max_wait':>9s} "
+          f"{'avg_sd':>7s} {'util':>6s} {'dead':>5s} {'picked':>7s}")
+    m = {k: host(v) for k, v in out.metrics._asdict().items()}
+    dead, best = host(out.deadlocked), host(out.best)
+    for p, name in enumerate(pool.names):
+        print(f"{name:>16s} "
+              f"{float(np.mean(m['avg_wait'][:, p])):9.1f} "
+              f"{float(np.mean(m['max_wait'][:, p])):9.1f} "
+              f"{float(np.mean(m['avg_slowdown'][:, p])):7.2f} "
+              f"{float(np.mean(m['utilization'][:, p])):6.3f} "
+              f"{int(dead[:, p].sum()):5d} "
+              f"{int((best == p).sum()):4d}/{S}")
+    print(f"objective {goal}: per-scenario winners "
+          f"{[pool.names[int(b)] for b in best]}")
+
+
+def check_flags(ap: argparse.ArgumentParser, args) -> None:
+    """Refuse the modes not ported yet (each names its ROADMAP item),
+    then the reference's flag combinations that apply here."""
     for dest, flag in _UNPORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             ap.error(f"{flag} is not yet ported to repro_torch")
+    if args.replay_grid and args.failures:
+        ap.error("--replay-grid evaluates static baselines; --failures "
+                 "and --ensemble do not apply (run the co-simulation "
+                 "for those)")
+    if args.replay_grid and args.budget_s:
+        ap.error("--chaos/--snapshot-dir/--budget-s apply to the twin "
+                 "co-simulation, not --replay-grid")
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    check_flags(ap, args)
     try:
         goal: Objective = validate_objective(args.objective)
     except ValueError as e:
@@ -165,6 +227,8 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"[{', '.join(pool.names[:8])}{', ...' if len(pool) > 8 else ''}] "
           f"backend={engine.backend} device={engine.device}")
     print(f"objective: {goal} ({type(goal).__name__})")
+    if args.replay_grid:
+        return replay_grid(args, engine, goal)
     report, twin, bus = co_simulate(args, engine)
     print_report(report, twin, bus)
 

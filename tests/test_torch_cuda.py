@@ -54,11 +54,29 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   thread layout up to J = 4096 (k = 1), rows that are not 16-byte
   aligned; no head and an empty queue; K1' on the same shared rows.
   Bitwise.
+* K1 with ``limit = 0`` (a replay step where no live fork has a queued
+  job, which the drain never passes) on forks with running jobs only,
+  empty forks and dead forks: it starts nothing and returns ``free0``,
+  bitwise its plain version.
+* The trace replay (``DrainEngine.replay_grid``) with backend ``cuda``
+  against ``reference`` on the card, on a (4 scenarios x 7 policies)
+  grid and a (2 x 32) DRAS-sweep grid with hoisted static forks:
+  ``start_t``, ``end_t``, ``deadlocked``, ``events``, ``iters``,
+  ``pass_invocations``, ``costs`` and ``best`` identical; K1 launched
+  once per host iteration on ``cuda``, never on ``reference``.
+* A block of ``des.REPLAY_BLOCK`` replay steps under
+  ``torch.cuda.set_sync_debug_mode("error")``: no step waits for the
+  device.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.cluster import workload
+from repro_torch.core import des
+from repro_torch.core.engine import (DrainEngine, make_order_fn,
+                                     replay_inputs)
+from repro_torch.core.policies import parse_pool
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import policy_eval as pe
 from repro_torch.kernels import rglru as rg
@@ -559,3 +577,98 @@ def test_shared_pass_walk_forks():
         s_p, f_p = pe.shared_pass_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(s_k, s_p) and torch.equal(f_k, f_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_pass_with_limit_zero_starts_nothing(seed):
+    """``limit = 0``, as a replay step passes it when no live fork has a
+    queued job: forks with running jobs only, empty forks, and dead
+    forks whose queued jobs each need more than the free nodes.  Nothing
+    starts and free = free0, bitwise the plain version.  (The limit's
+    contract is that no rank at or past it holds a queued slot; a
+    smaller limit is not an input of the pass.)"""
+    _card()
+    rng = np.random.default_rng(seed)
+    J = (64, 1024, pe.MAX_J)[seed]
+    forks = []
+    for f in range(12):
+        run = [(int(rng.integers(1, 8)), float(rng.integers(1, 6) * 600))
+               for _ in range(int(rng.integers(0, 20)))]
+        free0 = int(rng.integers(0, 40))
+        dead = [(free0 + int(rng.integers(1, 9)),
+                 float(rng.integers(1, 8) * 600))
+                for _ in range(int(rng.integers(1, 5)))]
+        forks.append(_fork(J, free0, run, dead if f % 3 == 2 else []))
+    args = _stack(forks, J, limit=0)
+    started = _assert_k1(args)
+    assert not started.any()
+    assert torch.equal(pe.policy_eval_pass_batched(*args)[1], args[5])
+
+
+def _replay_grids():
+    small = workload.stack_scenarios(
+        [workload.bursty_trace(24, 16, 4.0 + s, (1, 12), (30.0, 400.0),
+                               seed=s) for s in range(4)], 16, max_jobs=64)
+    dras = workload.stack_scenarios(
+        [workload.poisson_trace(100, 64, 20.0, (1, 11), (300.0, 86400.0),
+                                seed=s) for s in range(2)], 64)
+    return [(small, parse_pool("extended").spec),
+            (dras, parse_pool("extended,wfp:a=1..5x5:tau=600..7200x5").spec)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [0, 1], ids=["s4p7", "dras_s2p32"])
+def test_replay_cuda_matches_reference(grid):
+    _card()
+    scen, pool = _replay_grids()[grid]
+    pe.LAUNCHES = 0
+    got = DrainEngine("cuda", device="cuda").replay_grid(scen, pool)
+    torch.cuda.synchronize()
+    launches = pe.LAUNCHES
+    want = DrainEngine("reference", device="cuda").replay_grid(scen, pool)
+    torch.cuda.synchronize()
+    assert pe.LAUNCHES == launches
+    # one launch a host step: whole blocks until the condition is down
+    steps = -(-int(got.result.iters) // des.REPLAY_BLOCK) * des.REPLAY_BLOCK
+    assert launches == min(steps, 2 * scen.capacity + 2)
+    for name in ("start_t", "end_t", "deadlocked", "events", "costs",
+                 "best"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name in ("iters", "pass_invocations"):
+        assert int(getattr(got.result, name)) == \
+            int(getattr(want.result, name)), name
+    assert not got.deadlocked.any()
+
+
+@pytest.mark.cuda
+def test_replay_block_does_not_synchronise():
+    """The replay's body, K1 included, queues a whole block without
+    waiting for the device: ``set_sync_debug_mode("error")`` raises on
+    any synchronising call.  The run then ends as ``replay_grid`` does."""
+    _card()
+    scen, pool = _replay_grids()[1]
+    engine = DrainEngine("cuda", device="cuda")
+    states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool,
+                                                          "cuda")
+    plan = engine.plan(pool)
+    order_fn = make_order_fn(states, pool_t, plan * 2, torch.isfinite(
+        arrival_t))
+    step = des.make_replay_step(arrival_t, true_rt, order_fn,
+                                engine.pass_fn())
+    c = des.replay_init(states)
+    for _ in range(des.REPLAY_BLOCK):          # first block: builds, loads
+        c = step(c)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(des.REPLAY_BLOCK):
+            c = step(c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    while bool(des.replay_cond(c, arrival_t)):
+        c = step(c)
+    want = engine.replay_grid(scen, pool)
+    assert int(c.it) == int(want.result.iters) > 2 * des.REPLAY_BLOCK
+    assert torch.equal(c.st.jobs.start_t, want.result.state.jobs.start_t)
+    assert torch.equal(c.events, want.result.events)

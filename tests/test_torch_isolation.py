@@ -6,7 +6,8 @@
   of ``sys.modules``.
 * On a host without a CUDA device, every entry point asked for
   ``device="cuda"`` (their default) raises instead of running on the
-  CPU, the twin's and the serving stack's alike, and every kernel
+  CPU, the twin's (the replay and the emulator's fast mode included)
+  and the serving stack's alike, and every kernel
   wrapper (K1, K1', K2's two entries, K3, K4) raises for anything but
   CPU or CUDA tensors.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
@@ -25,7 +26,8 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.cluster.emulator import ClusterEmulator
-from repro_torch.cluster.workload import poisson_trace
+from repro_torch.cluster.workload import make_scenario, poisson_trace
+from repro_torch.configs.schedtwin import ReplayGridConfig
 from repro_torch.core import backfill, state, whatif
 from repro_torch.core.engine import DrainEngine
 from repro_torch.core.events import EventBus
@@ -112,6 +114,18 @@ def test_entry_points_raise_for_cuda_without_a_card():
             np.zeros(1), np.zeros((1, 9))),
         "twin_loop.main": lambda: twin_loop.main(
             ["--trace", "poisson", "--jobs", "4", "--nodes", "8"]),
+        "DrainEngine.replay": lambda: DrainEngine().replay(
+            make_scenario(trace, 8), torch.zeros(1, dtype=torch.int32)),
+        "DrainEngine.replay_grid": lambda: DrainEngine(
+            device="cuda").replay_grid(make_scenario(trace, 8),
+                                       torch.zeros(1, dtype=torch.int32)),
+        "ClusterEmulator.run(fast=True)": lambda: ClusterEmulator(
+            trace, 8).run(policy_id=0, fast=True),
+        "ReplayGridConfig.make_engine": lambda: ReplayGridConfig(
+            ).make_engine(),
+        "twin_loop.main --replay-grid": lambda: twin_loop.main(
+            ["--replay-grid", "2", "--trace", "poisson", "--jobs", "4",
+             "--nodes", "8"]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -122,7 +122,8 @@ def test_twin_loop_main_runs_on_cpu(capsys):
     assert "policy mix:" in out and "cycle latency:" in out
 
 
-@pytest.mark.parametrize("flag", [["--replay-grid", "4"], ["--train", "2"],
+@pytest.mark.parametrize("flag", [["--replay-grid", "4", "--shard", "2"],
+                                  ["--train", "2"],
                                   ["--fan", "8"], ["--race"],
                                   ["--ensemble", "4"], ["--chaos"],
                                   ["--snapshot-dir", "x"]])
