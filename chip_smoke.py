@@ -77,7 +77,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      time, the plain time and the bound; the
      DRAS pool's priority keys on the card against the CPU's in ulp on
      phase 4's mirror and on the deepest replay queue (C3); and
-     ``twin_loop --replay-grid 8`` on ``cuda`` and ``cpu``, same table.
+     ``twin_loop --replay-grid 8`` on ``cuda`` and ``cpu``, same table;
+ 13. fans, races and ensembles at Polaris scale, K1 the pass of every
+     fork: (a) the threefry draws of 512 fold-in chains (seed 0, s
+     0..7, phi 0..63; J=1024 normals, a phase and a uniform pair each)
+     on the card against the CPU; (b) ``decide_fan`` on phase 4's
+     mirror (F=16, runtime noise 0.3, failures 0.1, ``p95:avg_wait``:
+     k=512), ``cuda`` bitwise ``reference`` on the card, F=1 bitwise
+     ``decide``, wall, K1 launches, a traced decide, K1 on its first
+     pass against its plain version; (c) ``decide_race`` from F0=8 to
+     F_max=64 on the mirror: its winner that of the one-shot F=64 fan
+     (k=2048), members, rungs, both walls; (d) five Polaris cycles of
+     ``SchedTwin(ensemble=8)`` (k=256); (e) ``fan_grid`` over S=1 of
+     phase 12's traces x F=16 x the k=32 pool (512 forks; noise 0.3,
+     burst 0.2, failures 0.1 over 4 domains; ``cvar:0.9:score``):
+     bitwise ``replay_grid(materialize_fan(...))``, ``cuda`` bitwise
+     ``reference`` on an S=1 x F=8 slice, wall, iterations, host reads,
+     a block under ``set_sync_debug_mode("error")``, four traced blocks,
+     K1 on a pass (k=512) against its plain version; (f)
+     ``race_grid`` from F0=4 to F_max=32 over (e)'s scenarios: winners
+     those of ``fan_grid`` at F=32, members, rungs, ``stopped``, walls;
+     (g) ``twin_loop --fan 8 --race``, ``--ensemble 4`` and
+     ``--replay-grid 4 --fan 8 --prune`` print the same report on cuda
+     and cpu.  Each path runs with K1's count set to 0 before it and
+     read after; a path that never launched K1 fails the phase.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -106,6 +129,7 @@ On request, before those two lines:
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -208,13 +232,13 @@ def polaris_backlog(seed: int = 0):
     return trace, events, n_run
 
 
-def make_twin(engine, on_qrun):
+def make_twin(engine, on_qrun, **twin_kw):
     from repro_torch.core.events import EventBus
     from repro_torch.core.twin import SchedTwin
     bus = EventBus()
     twin = SchedTwin(bus=bus, qrun=on_qrun, total_nodes=POLARIS_NODES,
                      max_jobs=POLARIS_SLOTS, pool=DRAS_POOL,
-                     objective="score", engine=engine)
+                     objective="score", engine=engine, **twin_kw)
     return bus, twin
 
 
@@ -513,17 +537,18 @@ def check_cosim(pe):
 
 
 # ---------------------------------------------------------------- phase 4
-def polaris_cycles(torch, engine, pe):
+def polaris_cycles(torch, engine, pe, tag="[polaris]", **twin_kw):
     """Five decision cycles through the normal entry point: events on the
-    bus, ``SchedTwin.pump()``.  The qrun callback stands in for the
-    scheduler: it publishes RUNJOB for every started job."""
+    bus, ``SchedTwin.pump()`` (a twin built with ``twin_kw``, e.g.
+    ``ensemble=8``).  The qrun callback stands in for the scheduler: it
+    publishes RUNJOB for every started job."""
     from repro_torch.core.events import Event, EventKind
     pending = []
 
     def on_qrun(job_ids, t):
         pending.extend(Event(EventKind.RUNJOB, t, j) for j in job_ids)
 
-    bus, twin = make_twin(engine, on_qrun)
+    bus, twin = make_twin(engine, on_qrun, **twin_kw)
     trace, events, n_run = polaris_backlog()
     for ev in events:
         bus.publish(ev)
@@ -553,21 +578,25 @@ def polaris_cycles(torch, engine, pe):
         n_q = int((jobs.state == 1).sum())
         n_r = int((jobs.state == 2).sum())
         rows.append(rec.wall_seconds)
-        print(f"[polaris] cycle {cycle}: {rec.wall_seconds * 1e3:.1f} ms, "
+        print(f"{tag} cycle {cycle}: {rec.wall_seconds * 1e3:.1f} ms, "
               f"{pe.LAUNCHES - before} lock-step drain iterations "
               f"(= K1 launches), running {n_r} queued {n_q}, winner "
-              f"{rec.policy}, started {rec.n_started}")
+              f"{rec.policy}, started {rec.n_started}"
+              + (f", {rec.fan_size} members" if rec.fan_size > 1 else ""))
         if not all(math.isfinite(c) for c in rec.costs.values()):
-            raise SystemExit(f"[polaris] cycle {cycle}: non-finite costs")
+            raise SystemExit(f"{tag} cycle {cycle}: non-finite costs")
     launches = pe.LAUNCHES
     if launches == 0:
-        raise SystemExit("[polaris] the main path never launched K1")
-    print(f"[polaris] {POLARIS_CYCLES} cycles, {len(trace)} jobs "
+        raise SystemExit(f"{tag} the main path never launched K1")
+    forks = ("k=32" if twin_kw.get("ensemble", 1) <= 1 else
+             f"k=32 x {twin_kw['ensemble']} members = "
+             f"{32 * twin_kw['ensemble']} forks")
+    print(f"{tag} {POLARIS_CYCLES} cycles, {len(trace)} jobs "
           f"({n_run} started at ingest) on {POLARIS_NODES} nodes, "
-          f"J={POLARIS_SLOTS}, k=32: wall mean "
+          f"J={POLARIS_SLOTS}, {forks}: wall mean "
           f"{statistics.mean(rows) * 1e3:.1f} ms, p50 "
           f"{statistics.median(rows) * 1e3:.1f} ms; K1 launches {launches}")
-    return launches, mirrors
+    return launches, mirrors, rows
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1517,6 +1546,428 @@ def replay_phase(torch, pe, snapshot):
                              bound_by=by))
 
 
+# --------------------------------------------------------------- phase 13
+FAN_DECIDE = dict(n=16, runtime_noise=0.3, failure_prob=0.1)   # k = 512
+FAN_GOAL = "p95:avg_wait"
+RACE_DECIDE = dict(f_max=64, f0=8)                             # k <= 2048
+ENSEMBLE = 8                                                   # k = 256
+FAN_GRID_SCENARIOS = 1       # S of phase 12's traces in (e) and (f): cut
+#                              from 2 to keep the script near 400 s
+FAN_GRID = dict(n=16, runtime_noise=0.3, burst_amplitude=0.2,
+                failure_prob=0.1, failure_domains=4)           # S x 512 forks
+FAN_GRID_GOAL = "cvar:0.9:score"
+RACE_GRID = dict(f_max=32, f0=4)
+FAN_CLI = (["--fan", "8", "--race"], ["--ensemble", "4"],
+           ["--replay-grid", "4", "--fan", "8", "--prune"])
+
+
+def prng_on_card(torch):
+    """(a) The fans' key chains on the card against the CPU: seed 0,
+    s in 0..7, phi in 0..63, each drawing J=1024 normals, a phase and a
+    uniform pair, plus their bits."""
+    from repro_torch.core import fan, prng
+    s = torch.arange(8).repeat_interleave(64)
+    phi = torch.arange(64).repeat(8)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(0), s), phi)
+    gkeys = prng.fold_in(prng.fold_in(prng.PRNGKey(0, device="cuda"),
+                                      s.cuda()), phi.cuda())
+    cpu = (keys, prng.bits(keys, (POLARIS_SLOTS,))) + fan._member_draws(
+        0, s, phi, POLARIS_SLOTS)
+    gpu = (gkeys, prng.bits(gkeys, (POLARIS_SLOTS,))) + fan._member_draws(
+        0, s.cuda(), phi.cuda(), POLARIS_SLOTS)
+    names = ("keys", "bits", "normals/sqrt2", "phase", "uniform pair")
+    differ = {n: int((a != b.cpu()).sum()) for n, a, b in zip(names, cpu,
+                                                               gpu)}
+    scale = fan.lognormal_scale(cpu[2], 0.3)
+    differ["lognormal factor"] = int(
+        (scale != fan.lognormal_scale(gpu[2], 0.3).cpu()).sum())
+    exact = ("keys", "bits", "phase", "uniform pair")
+    if any(differ[n] for n in exact):
+        raise SystemExit(f"[prng] cuda and cpu draws differ: {differ}")
+    print(f"[prng] 512 fold-in chains (seed 0, s 0..7, phi 0..63): keys, "
+          f"{512 * POLARIS_SLOTS} bits, phases and uniform pairs bitwise "
+          f"the CPU's; normals differing from the CPU's: "
+          f"{differ['normals/sqrt2']} of {512 * POLARIS_SLOTS}, lognormal "
+          f"factors {differ['lognormal factor']} (bound stated: 0 — every "
+          f"operation is IEEE-exact)")
+    return differ
+
+
+def capture_first_pass(pe, fn):
+    """Run ``fn()`` with K1's wrapper recording the inputs of its first
+    launch; returns (fn's result, those inputs)."""
+    real, seen = pe.policy_eval_pass_batched, []
+
+    def spy(*args):
+        if not seen:
+            seen.append(tuple(None if a is None else a.clone()
+                              for a in args))
+        return real(*args)
+    pe.policy_eval_pass_batched = spy
+    try:
+        out = fn()
+    finally:
+        pe.policy_eval_pass_batched = real
+    return out, seen[0]
+
+
+def k1_on(torch, pe, args, tag):
+    """K1 on one captured pass of a new path: bitwise its plain version,
+    time (C entry, back-to-back), the plain version's time, the bound."""
+    from repro_torch.core.backfill import schedule_pass_batched
+    s_k, f_k = pe.policy_eval_pass_batched(*args)
+    s_p, f_p = schedule_pass_batched(*args)
+    if not (torch.equal(s_k, s_p) and torch.equal(f_k, f_p)):
+        raise SystemExit(f"{tag} K1 and its plain version differ")
+    launch = raw_launch(torch, pe, args)
+    ms = min(time_ms(torch, launch, 300), time_ms(torch, launch, 300))
+    plain_ms = time_ms(torch, lambda: schedule_pass_batched(*args), 5)
+    bnd, by = k1_bound_ms(torch, args)
+    k, J = args[0].shape
+    print(f"{tag} K1 on the path's first pass (k={k}, J={J}, "
+          f"{int(s_k.sum())} starts): bitwise its plain version; "
+          f"{ms * 1e3:.2f} us per launch, plain {plain_ms:.3f} ms, bound "
+          f"{bnd * 1e3:.3f} us ({by})")
+    return dict(k=k, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+
+
+def same_decision(torch, a, b, what):
+    for f in ("policy_index", "costs", "run_mask", "deadlocked",
+              "cost_ci", "fan_width"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x, y)):
+            raise SystemExit(f"[fan] {what}: {f} differs")
+    for m, n in zip(a.metrics, b.metrics):
+        if not torch.equal(m, n):
+            raise SystemExit(f"[fan] {what}: metrics differ")
+
+
+def fan_decide_phase(torch, pe, snapshot, card):
+    """(b) ``decide_fan`` on the Polaris mirror, F=16 x k=32 = 512 forks:
+    cuda bitwise reference on the card; F=1 bitwise ``decide``; wall,
+    K1 launches, a traced decide."""
+    from repro_torch.core.engine import DrainEngine
+    from repro_torch.core.fan import FanSpec
+    from repro_torch.core.policies import parse_pool
+    pool = parse_pool(DRAS_POOL).spec.to("cuda")
+    cuda = DrainEngine("cuda", device="cuda")
+    ref = DrainEngine("reference", device="cuda")
+    spec = FanSpec(**FAN_DECIDE)
+
+    def decide(engine, sp=spec):
+        d = engine.decide_fan(snapshot, pool, sp, FAN_GOAL)
+        d.run_mask.cpu()
+        return d
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got, first = capture_first_pass(pe, lambda: decide(cuda))
+    cold = time.perf_counter() - t0
+    launches = pe.LAUNCHES
+    if launches == 0:
+        raise SystemExit("[fan] decide_fan never launched K1")
+    t0 = time.perf_counter()
+    decide(cuda)
+    warm = time.perf_counter() - t0
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    want = decide(ref)
+    ref_s = time.perf_counter() - t0
+    if pe.LAUNCHES:
+        raise SystemExit("[fan] the reference backend launched K1")
+    same_decision(torch, got, want, "decide_fan cuda vs reference")
+    one = dataclasses.replace(spec, n=1)
+    d1, d0 = decide(cuda, one), cuda.decide(snapshot, pool, FAN_GOAL)
+    for f in ("policy_index", "costs", "run_mask", "deadlocked"):
+        if not torch.equal(getattr(d1, f), getattr(d0, f)):
+            raise SystemExit(f"[fan] F=1 decide_fan and decide differ in {f}")
+    names = parse_pool(DRAS_POOL).names
+    ci = got.cost_ci.cpu()
+    print(f"[fan] decide_fan on the Polaris mirror, F={spec.n} x k=32 = "
+          f"{spec.n * 32} forks, {FAN_GOAL}: cuda == reference on the card "
+          f"(winner, costs, CI, spread, qrun set, deadlocks, metrics; "
+          f"tolerance: none); F=1 == decide; winner "
+          f"{names[int(got.policy_index)]} (CI ±{float(ci[got.policy_index]):.2f}"
+          f", spread {float(got.fan_width[got.policy_index]):.2f}), "
+          f"{int(got.run_mask.sum())} starts")
+    prof = traced(torch, lambda: decide(cuda), "[fan]",
+                  f"decide_fan (k={spec.n * 32})", "pass_kernel")
+    busy = prof["busy_us"]
+    busy_txt = (f"{100.0 * busy / prof['wall_us']:.1f}%" if busy is not None
+                else "not measured")
+    print(f"[fan] {card}: wall {warm:.3f} s warm ({cold:.3f} s first; "
+          f"reference backend {ref_s:.3f} s); {launches} lock-step "
+          f"iterations = K1 launches; traced: "
+          f"{prof['kernels'] / launches:.1f} kernels an iteration, device "
+          f"busy {busy_txt}")
+    k1 = k1_on(torch, pe, first, "[fan]")
+    return dict(launches=launches, wall=warm, k1=k1)
+
+
+def race_decide_phase(torch, pe, snapshot, card):
+    """(c) ``decide_race`` on the mirror, F_max=64 from F0=8: its winner
+    is the F=64 ``decide_fan``'s (k=2048); members, rungs, walls."""
+    from repro_torch.core.engine import DrainEngine
+    from repro_torch.core.fan import FanSpec
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.race import RaceSpec
+    host_pool = parse_pool(DRAS_POOL).spec
+    cuda = DrainEngine("cuda", device="cuda")
+    fan64 = FanSpec(**{**FAN_DECIDE, "n": RACE_DECIDE["f_max"]})
+    race = RaceSpec(fan=fan64, f0=RACE_DECIDE["f0"])
+
+    def run_race():
+        d, out = cuda.decide_race(snapshot, host_pool, race, FAN_GOAL)
+        d.run_mask.cpu()
+        return d, out
+
+    def run_fan():
+        full = cuda.decide_fan(snapshot, host_pool, fan64, FAN_GOAL)
+        full.run_mask.cpu()
+        return full
+    # in turns: race, fan, fan, race; launches counted on the first of each
+    walls = {"race": [], "fan": []}
+    counts = {}
+    for name, fn in (("race", run_race), ("fan", run_fan), ("fan", run_fan),
+                     ("race", run_race)):
+        pe.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()
+        walls[name].append(time.perf_counter() - t0)
+        counts.setdefault(name, (pe.LAUNCHES, res))
+    launches, (d, out) = counts["race"]
+    fan_launches, full = counts["fan"]
+    if launches == 0 or fan_launches == 0:
+        raise SystemExit("[race] decide_race or decide_fan never launched K1")
+    race_s, fan_s = min(walls["race"]), min(walls["fan"])
+    if int(d.policy_index) != int(full.policy_index):
+        raise SystemExit("[race] the race's winner is not the F=64 fan's")
+    if not torch.equal(d.run_mask, full.run_mask):
+        raise SystemExit("[race] the race's qrun set is not the F=64 fan's")
+    full_bill = fan64.n * 32
+    print(f"[race] decide_race F_max={fan64.n} from F0={race.f0} on the "
+          f"Polaris mirror: winner == decide_fan F={fan64.n} (k="
+          f"{full_bill}) on the card; {out.members} members of {full_bill} "
+          f"({len(out.rungs)} rungs: "
+          + ", ".join(f"[{r.lo},{r.hi}) x {len(r.active)}" for r in out.rungs)
+          + f"), stopped={out.stopped}, fan_size {out.fan_size}; {card}, "
+          f"in turns (race, fan, fan, race): race "
+          f"{' / '.join(f'{w:.3f}' for w in walls['race'])} s ({launches} "
+          f"K1 launches), one-shot F={fan64.n} fan "
+          f"{' / '.join(f'{w:.3f}' for w in walls['fan'])} s "
+          f"({fan_launches} K1 launches)")
+    return dict(launches=launches, fan64_launches=fan_launches,
+                race_s=race_s, fan_s=fan_s, members=out.members,
+                full=full_bill)
+
+
+def fan_grid_phase(torch, pe, card):
+    """(e) ``fan_grid`` over S (``FAN_GRID_SCENARIOS``) of phase 12's
+    traces x F=16 x the k=32 DRAS pool; (f) ``race_grid`` over them,
+    F_max=32 from F0=4."""
+    from repro_torch.cluster.workload import stack_scenarios
+    from repro_torch.core import des
+    from repro_torch.core.engine import (DrainEngine,
+                                         _assemble_replay_inputs,
+                                         _scenario_arrays, make_order_fn)
+    from repro_torch.core.fan import FanSpec, materialize_fan, perturb_window
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.race import RaceSpec, race_grid
+    traces, _ = polaris_traces()
+    S = FAN_GRID_SCENARIOS
+    scen = stack_scenarios(traces[:S], POLARIS_NODES,
+                           max_jobs=POLARIS_SLOTS)
+    pool = parse_pool(DRAS_POOL)
+    P = len(pool)
+    spec = FanSpec(**FAN_GRID)
+    F = spec.n
+    cuda = DrainEngine("cuda", device="cuda")
+    ref = DrainEngine("reference", device="cuda")
+    print(f"[fan-grid] S={S} of phase 12's scenarios x F={F} x the k={P} "
+          f"DRAS pool = {S * F * P} forks, J={POLARIS_SLOTS}, "
+          f"{FAN_GRID_GOAL}, noise {spec.runtime_noise}, burst "
+          f"{spec.burst_amplitude}, failures {spec.failure_prob} over "
+          f"{spec.failure_domains} domains")
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = cuda.fan_grid(scen, pool.spec, spec, FAN_GRID_GOAL)
+    got.end_t.cpu()
+    wall = time.perf_counter() - t0
+    launches = pe.LAUNCHES
+    if launches == 0:
+        raise SystemExit("[fan-grid] fan_grid never launched K1")
+    iters = int(got.result.iters)
+    reads = -(-launches // des.REPLAY_BLOCK)
+    mat = cuda.replay_grid(materialize_fan(scen, spec, device="cuda"),
+                           pool.spec, FAN_GRID_GOAL)
+    for name in ("start_t", "end_t", "deadlocked", "events"):
+        a = getattr(mat, name).reshape(getattr(got, name).shape)
+        if not torch.equal(a, getattr(got, name)):
+            raise SystemExit(f"[fan-grid] fan_grid and replay_grid of "
+                             f"materialize_fan differ in {name}")
+    if not torch.equal(mat.costs.reshape(S, F, P), got.member_costs):
+        raise SystemExit("[fan-grid] member costs differ from the "
+                         "materialized replay's")
+    one = dataclasses.replace(scen, **{
+        f: getattr(scen, f)[:1] for f in ("submit_t", "nodes",
+                                          "est_runtime", "true_runtime",
+                                          "valid", "n_jobs",
+                                          "total_nodes")})
+    spec8 = dataclasses.replace(spec, n=8)
+    pe.LAUNCHES = 0
+    a = cuda.fan_grid(one, pool.spec, spec8, FAN_GRID_GOAL)
+    a.end_t.cpu()
+    slice_launches = pe.LAUNCHES
+    t0 = time.perf_counter()
+    b = ref.fan_grid(one, pool.spec, spec8, FAN_GRID_GOAL)
+    b.end_t.cpu()
+    ref_s = time.perf_counter() - t0
+    if pe.LAUNCHES != slice_launches:
+        raise SystemExit("[fan-grid] the reference backend launched K1")
+    for name in ("start_t", "end_t", "deadlocked", "events",
+                 "member_costs", "costs", "best", "cost_ci", "fan_width"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise SystemExit(f"[fan-grid] cuda and reference differ in "
+                             f"{name} on the S=1 x F=8 slice")
+    if not torch.equal(a.end_t[0], got.end_t[0, :8]):
+        raise SystemExit("[fan-grid] the 8-member slice is not the first 8 "
+                         "members of the 16-member fan")
+    print(f"[fan-grid] fan_grid == replay_grid(materialize_fan) on the card "
+          f"(times, deadlocks, events, member costs; tolerance: none); the "
+          f"S=1 x F=8 slice ({8 * P} forks): cuda == reference in every "
+          f"field and == the full fan's first 8 members; winners "
+          f"{[pool.names[int(i)] for i in got.best]}")
+
+    # block by block: block 2 under sync-debug "error", blocks 3-6 traced
+    rows = perturb_window(*_scenario_arrays(scen, cuda.device), spec,
+                          torch.arange(S * F, device="cuda"), 0, F, S)
+    states, arrival_t, true_rt, pool_t, _ = _assemble_replay_inputs(
+        *rows, pool.spec.to("cuda"), P)
+    order_fn = make_order_fn(states, pool_t, cuda.plan(pool.spec) * (S * F),
+                             torch.isfinite(arrival_t))
+    N = des.REPLAY_BLOCK
+    step = des.make_replay_step(arrival_t, true_rt, order_fn,
+                                cuda.pass_fn())
+
+    def blocks(c, n):
+        for _ in range(n * N):
+            c = step(c)
+        return c
+    c = blocks(des.replay_init(states), 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c = blocks(c, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    c, first = capture_first_pass(pe, lambda: blocks(c, 1))
+    prof = traced(torch, lambda: bool(des.replay_cond(blocks(c, 4),
+                                                      arrival_t)),
+                  "[fan-grid]", f"blocks 4-7 of the fan grid ({4 * N} "
+                  f"iterations, {S * F * P} forks)", "pass_kernel")
+    busy = prof["busy_us"]
+    busy_txt = (f"{100.0 * busy / prof['wall_us']:.1f}%" if busy is not None
+                else "not measured")
+    print(f"[fan-grid] block 2 ran under set_sync_debug_mode('error'): no "
+          f"synchronising call. {card}: wall {wall:.3f} s, {iters} "
+          f"iterations, {launches} K1 launches, {reads} host reads ({N} "
+          f"iterations a read), {wall * 1e6 / launches:.1f} us of wall a "
+          f"step; traced: {prof['kernels'] / (4 * N):.1f} kernels an "
+          f"iteration, device busy {busy_txt}; reference backend on the "
+          f"{8 * P}-fork slice {ref_s:.3f} s")
+    k1 = k1_on(torch, pe, first, "[fan-grid]")
+
+    # (f) the raced grid
+    spec32 = dataclasses.replace(spec, n=RACE_GRID["f_max"])
+    race = RaceSpec(fan=spec32, f0=RACE_GRID["f0"])
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = race_grid(scen, pool.spec, race, FAN_GRID_GOAL, engine=cuda)
+    race_s = time.perf_counter() - t0
+    race_launches = pe.LAUNCHES
+    if race_launches == 0:
+        raise SystemExit("[race-grid] race_grid never launched K1")
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    full = cuda.fan_grid(scen, pool.spec, spec32, FAN_GRID_GOAL)
+    best = full.best.cpu().numpy()
+    full_s = time.perf_counter() - t0
+    full_launches = pe.LAUNCHES
+    if list(out.best) != list(best):
+        raise SystemExit(f"[race-grid] winners {list(out.best)} differ from "
+                         f"the F={spec32.n} fan's {list(best)}")
+    print(f"[race-grid] race_grid F_max={spec32.n} from F0={race.f0}: "
+          f"winners == fan_grid F={spec32.n} ({S * spec32.n * P} forks); "
+          f"{out.members} members of {out.members_full} ("
+          + ", ".join(f"[{r.lo},{r.hi}) x {len(r.active)}" for r in out.rungs)
+          + f"), stopped={out.stopped}; {card}: race {race_s:.3f} s "
+          f"({race_launches} K1 launches), fan F={spec32.n} {full_s:.3f} s "
+          f"({full_launches} K1 launches)")
+    return dict(launches=launches, wall=wall, k1=k1,
+                race_launches=race_launches, race_s=race_s, full_s=full_s,
+                members=out.members, members_full=out.members_full)
+
+
+def fan_cli(device, flags):
+    """``twin_loop`` with ``flags`` on the small poisson co-simulation:
+    its report without the device's name and the wall-time lines."""
+    import contextlib
+    import io
+    from repro_torch.launch import twin_loop
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        twin_loop.main(["--trace", "poisson", "--jobs", "30", "--nodes",
+                        "16", "--seed", "3", "--device", device] + flags)
+    keep = []
+    for line in buf.getvalue().splitlines()[1:]:
+        if line.startswith("cycle latency:"):
+            continue
+        if line.startswith(("replay grid:", "raced grid:")):
+            line = line.rsplit(" in ", 1)[0]
+        keep.append(line)
+    return keep
+
+
+def monte_carlo_phase(torch, pe, snapshot, engine):
+    """Phase 13: fans, races and ensembles at Polaris scale, K1 as the
+    pass of every fork."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    prng_on_card(torch)
+    fan = fan_decide_phase(torch, pe, snapshot, card)
+    race = race_decide_phase(torch, pe, snapshot, card)
+    ens_launches, _, ens_walls = polaris_cycles(torch, engine, pe,
+                                                tag="[ensemble]",
+                                                ensemble=ENSEMBLE)
+    grid = fan_grid_phase(torch, pe, card)
+    cli_launches = 0
+    for flags in FAN_CLI:
+        pe.LAUNCHES = 0
+        on_cuda = fan_cli("cuda", flags)
+        launches = pe.LAUNCHES
+        if launches == 0:
+            raise SystemExit(f"[fan-cli] twin_loop {' '.join(flags)} never "
+                             f"launched K1")
+        cli_launches += launches
+        if on_cuda != fan_cli("cpu", flags):
+            raise SystemExit(f"[fan-cli] twin_loop {' '.join(flags)}: cuda "
+                             f"and cpu reports differ")
+        print(f"[fan-cli] twin_loop {' '.join(flags)} (poisson, 30 jobs, 16 "
+              f"nodes): cuda and cpu print the same {len(on_cuda)}-line "
+              f"report; K1 launches {launches}")
+    print(f"[monte-carlo] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        launches_by_path={
+            "fan_decide": fan["launches"], "race_decide": race["launches"],
+            "fan64_decide": race["fan64_launches"],
+            "ensemble_cycles": ens_launches,
+            "fan_grid": grid["launches"],
+            "race_grid": grid["race_launches"],
+            "fan_race_ensemble_cli": cli_launches},
+        fan_pass=fan["k1"], fan_grid_pass=grid["k1"],
+        ensemble_wall_mean_ms=statistics.mean(ens_walls) * 1e3)
+
+
 # ------------------------------------------------- on request: --parent
 def read(path):
     with open(path) as f:
@@ -1847,7 +2298,7 @@ def main() -> int:
     snapshot = polaris_snapshot(engine)
     k1, drain_inputs = kernel_vs_plain(torch, engine, snapshot)
     check_cosim(pe)
-    launches, mirrors = polaris_cycles(torch, engine, pe)
+    launches, mirrors, _ = polaris_cycles(torch, engine, pe)
     profile_cycle(torch, engine, snapshot)
     k1s_launches, k1s = check_k1_shared(torch, snapshot, mirrors)
     report_k4_plan(logs)
@@ -1864,6 +2315,7 @@ def main() -> int:
                          n_req=4, slots=2, max_seq=4096, lo=256, hi=3072,
                          max_new=8, min_longest=2048)
     replay = replay_phase(torch, pe, snapshot)
+    mc = monte_carlo_phase(torch, pe, snapshot, engine)
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)
@@ -1878,12 +2330,15 @@ def main() -> int:
              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(card_line())
     print(json.dumps({"kernels": [
-        dict(K1, launches=launches + replay["launches"], **k1,
+        dict(K1, launches=launches + replay["launches"]
+             + sum(mc["launches_by_path"].values()), **k1,
              library_ms=None,
              launches_by_path={"polaris_cycles": launches,
-                               "polaris_replay_grid": replay["launches"]},
+                               "polaris_replay_grid": replay["launches"],
+                               **mc["launches_by_path"]},
              replay_mean_us=replay["k1_mean_us"],
-             replay_pass=replay["k1_pass"]),
+             replay_pass=replay["k1_pass"], fan_pass=mc["fan_pass"],
+             fan_grid_pass=mc["fan_grid_pass"]),
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg], **k2),
         dict(K3, launches=rwkv[wk], **k3),

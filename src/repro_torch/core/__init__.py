@@ -1,22 +1,30 @@
 """SchedTwin core on PyTorch: the port of ``repro.core``."""
 from repro_torch.core.engine import (PASS_BACKENDS, Decision, DrainEngine,
+                                     FanOutcome, ReplayOutcome,
                                      register_backend)
 from repro_torch.core.events import Event, EventBus, EventKind
+from repro_torch.core.fan import FanSpec, normalize_fan, pruned_fan_grid
 from repro_torch.core.objective import (Objective, parse_objective,
                                         resolve_goal, validate_objective)
 from repro_torch.core.policies import (EXTENDED_POOL, PAPER_POOL, PolicyPool,
                                        PolicySpec, normalize_pool, parse_pool)
 from repro_torch.core.state import (DONE, INVALID, QUEUED, RUNNING, JobTable,
                                     SimState, empty_state)
+from repro_torch.core.race import (RaceOutcome, RaceSpec, decide_race,
+                                   normalize_race, race_grid)
 from repro_torch.core.twin import SchedTwin
-from repro_torch.core.whatif import decide
+from repro_torch.core.whatif import decide, decide_ensemble
 
 __all__ = [
     "PASS_BACKENDS", "Decision", "DrainEngine", "register_backend",
+    "ReplayOutcome", "FanOutcome",
+    "FanSpec", "normalize_fan", "pruned_fan_grid",
+    "RaceSpec", "RaceOutcome", "normalize_race", "race_grid",
+    "decide_race",
     "Event", "EventBus", "EventKind",
     "Objective", "parse_objective", "resolve_goal", "validate_objective",
     "EXTENDED_POOL", "PAPER_POOL", "PolicyPool", "PolicySpec",
     "normalize_pool", "parse_pool",
     "DONE", "INVALID", "QUEUED", "RUNNING", "JobTable", "SimState",
-    "empty_state", "SchedTwin", "decide",
+    "empty_state", "SchedTwin", "decide", "decide_ensemble",
 ]

@@ -23,9 +23,16 @@ their state and pool there.  It also hosts the scenario-vectorized
 replay (DESIGN.md §6): ``replay`` / ``replay_grid`` drive
 ``des.simulate_replay_batched`` over a ``workload.ScenarioSet``, with an
 S-scenario axis stacked on the P-policy fork axis (fork f = s·P + p), so
-a whole baseline grid is one batched replay.  Ensembles (ROADMAP A6),
-fans and races (A7), the sharded streamers (A8) and θ training (A9) are
-not ported yet.
+a whole baseline grid is one batched replay.
+
+Monte-Carlo decisions ride the same fork axis (DESIGN.md §§10-11):
+``decide_ensemble`` (fork f = e·k + p, estimate noise from a threefry
+key), ``decide_fan`` (f = φ·k + p, the ``fan.FanSpec`` perturbations),
+``fan_grid``/``fan_window_grid`` (f = (s·F + φ)·P + p, the fan expanded
+on the device from the base scenarios) and the races over them
+(``core/race.py``).  Every fork of them runs the same pass backend, so
+on ``cuda`` each is K1 at k = F·P or S·F·P.  The sharded streamers (A8)
+and θ training (A9) are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,14 +44,18 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import scoring
+from repro_torch.core import prng, scoring
 from repro_torch.core.backfill import (priority_order, schedule_pass_batched,
                                        static_priority_order)
 from repro_torch.core.des import (DrainMetrics, DrainResult, ReplayResult,
                                   broadcast_state, simulate_replay_batched,
                                   simulate_to_drain_batched, state_metrics)
+from repro_torch.core.fan import (FanSpec, _member_draws, failure_downs,
+                                  lognormal_scale, normalize_fan,
+                                  perturb_window)
 from repro_torch.core.objective import (DEFAULT_OBJECTIVE, Objective,
-                                        ObjectiveLike, resolve_goal)
+                                        ObjectiveLike, as_distributional,
+                                        resolve_goal)
 from repro_torch.core.policies import PolicySpec, time_invariant_mask
 from repro_torch.core.state import (QUEUED, TIME_NONE, JobTable, SimState,
                                     map_state)
@@ -91,13 +102,23 @@ def _pool_to(pool: EnginePool, device: torch.device) -> EnginePool:
 
 
 class Decision(NamedTuple):
-    """One scheduling cycle's outcome (tensors on the engine's device)."""
+    """One scheduling cycle's outcome (tensors on the engine's device).
+
+    Fan and ensemble decisions also stamp per-policy uncertainty
+    computed on the device from the member costs: ``cost_ci`` the 95%
+    normal CI half-width of the member mean (``1.96·σ/√F``; +inf when a
+    member deadlocked), ``fan_width`` the worst − best member spread and
+    ``fan_size`` the member count.  Single-future decisions leave them
+    None/1."""
     policy_index: torch.Tensor   # index into the pool (NOT the policy id)
     costs: torch.Tensor          # (k,) per-policy objective cost
     run_mask: torch.Tensor       # bool (max_jobs,) jobs to start now
     metrics: DrainMetrics        # (k,)-leading metrics for telemetry
     deadlocked: torch.Tensor     # (k,) bool
     cost_terms: Optional[Dict[str, torch.Tensor]] = None  # term -> (k,)
+    cost_ci: Optional[torch.Tensor] = None    # (k,) 95% CI half-width
+    fan_width: Optional[torch.Tensor] = None  # (k,) member-cost spread
+    fan_size: int = 1                         # members behind the costs
 
 
 class ReplayOutcome(NamedTuple):
@@ -116,6 +137,28 @@ class ReplayOutcome(NamedTuple):
     result: ReplayResult         # the raw flat (k = S·P) replay result
     costs: Optional[torch.Tensor] = None   # (..., P)
     best: Optional[torch.Tensor] = None    # per-scenario pool index
+
+
+class FanOutcome(NamedTuple):
+    """A (scenario × fan member × policy) Monte-Carlo grid (DESIGN.md
+    §10) from ``DrainEngine.fan_grid``: leading axes (S, F, P), flat fork
+    ``f = (s·F + φ)·P + p``, member φ=0 the unperturbed future.
+    ``member_costs`` is the inner goal per member (deadlocked members at
+    +inf), ``costs`` its distributional reduction over the fan axis,
+    ``best`` the per-scenario argmin, ``cost_ci``/``fan_width`` the
+    ``member_uncertainty`` stamps."""
+    start_t: torch.Tensor        # f32 (S, F, P, J) — actual start times
+    end_t: torch.Tensor          # f32 (S, F, P, J)
+    metrics: DrainMetrics        # (S, F, P)-leading
+    deadlocked: torch.Tensor     # bool (S, F, P)
+    events: torch.Tensor         # i32 (S, F, P)
+    result: Optional[ReplayResult]  # raw flat replay; None when the
+                                    # outcome was assembled from pieces
+    member_costs: torch.Tensor   # (S, F, P) inner costs per member
+    costs: torch.Tensor          # (S, P) reduced distributional costs
+    best: torch.Tensor           # (S,) per-scenario winning pool index
+    cost_ci: torch.Tensor        # (S, P) 95% CI half-width
+    fan_width: torch.Tensor      # (S, P) worst − best member cost
 
 
 # ----------------------------------------------------------------------
@@ -340,6 +383,125 @@ class DrainEngine:
         pool index the goal picks for scenario s."""
         return self._replay(scenarios, pool, objective, weights, grid=True)
 
+    # -- Monte-Carlo decisions (DESIGN.md §10) -------------------------
+    def decide_ensemble(self, state: SimState, pool: EnginePool,
+                        key: torch.Tensor, n_ens: int = 8,
+                        noise: float = 0.3,
+                        objective: ObjectiveLike = None, *,
+                        weights: Optional[scoring.ScoreWeights] = None,
+                        ) -> Decision:
+        """One cycle over ``n_ens`` estimate-noise members: fork
+        f = e·k + p drains policy p with member e's lognormal
+        walltime-estimate factors, drawn from the (2,) threefry ``key``
+        (``prng.PRNGKey``/``prng.split``).  The cost is the goal of the
+        member-mean metrics; the qrun set comes from member 0."""
+        goal = resolve_goal(objective, weights)
+        d = _decide_ensemble(self, state.to(self.device),
+                             _pool_to(pool, self.device),
+                             key.to(self.device), n_ens, noise, goal,
+                             self.plan(pool))
+        return d._replace(fan_size=n_ens)
+
+    def decide_fan(self, state: SimState, pool: EnginePool, fan,
+                   objective: ObjectiveLike = None, *,
+                   weights: Optional[scoring.ScoreWeights] = None
+                   ) -> Decision:
+        """One cycle over a fan of F perturbed futures per policy: fork
+        f = φ·k + p drains policy p under member φ's estimate-noise and
+        node-failure draws (member 0 exact; arrival warps do not apply
+        to a drain).  Selection is the goal's distributional reduction
+        of the member costs; the decision carries
+        ``cost_ci``/``fan_width``/``fan_size``.  ``fan`` is a
+        ``FanSpec`` or a bare int F."""
+        goal = resolve_goal(objective, weights)
+        spec = normalize_fan(fan)
+        d = _decide_fan(self, state.to(self.device),
+                        _pool_to(pool, self.device), spec, goal,
+                        self.plan(pool))
+        return d._replace(fan_size=spec.n)
+
+    def fan_grid(self, scenarios, pool, fan,
+                 objective: ObjectiveLike = None, *,
+                 weights: Optional[scoring.ScoreWeights] = None
+                 ) -> FanOutcome:
+        """The Monte-Carlo fan grid: every (scenario, policy) cell of
+        ``replay_grid`` under F perturbed futures, S·F·P forks in one
+        batched replay, the fan expanded on the device from the base
+        scenarios (fork ``f = (s·F + φ)·P + p``).  Any degenerate spec,
+        ``FanSpec(n=1)`` included, is bitwise ``replay_grid``."""
+        spec = normalize_fan(fan)
+        return self._fan(scenarios, pool, spec, objective, weights,
+                         0, spec.n)
+
+    def fan_window_grid(self, scenarios, pool, fan,
+                        objective: ObjectiveLike = None, *,
+                        lo: int = 0, width: Optional[int] = None,
+                        weights: Optional[scoring.ScoreWeights] = None
+                        ) -> FanOutcome:
+        """Replay only members ``φ ∈ [lo, lo+width)`` of the fan — the
+        racing and pruning suffix.  Each member is bitwise the same
+        member of the full ``fan_grid``; the outcome's reduction treats
+        the window as the whole fan."""
+        spec = normalize_fan(fan)
+        if width is None:
+            width = spec.n - lo
+        if not (0 <= lo and lo + width <= spec.n and width >= 1):
+            raise ValueError(
+                f"member window [{lo}, {lo + width}) outside fan of "
+                f"size {spec.n}")
+        return self._fan(scenarios, pool, spec, objective, weights,
+                         lo, width)
+
+    def generation_costs(self, scenarios, pool,
+                         objective: ObjectiveLike = None,
+                         fan=None) -> torch.Tensor:
+        """Per-(scenario, candidate) costs (S, P): ``replay_grid``'s, or
+        with ``fan`` the distributional costs of ``fan_grid``."""
+        if fan is None:
+            return self.replay_grid(scenarios, pool, objective).costs
+        return self.fan_grid(scenarios, pool, fan, objective).costs
+
+    # -- adaptive racing (DESIGN.md §11) -------------------------------
+    def race_grid(self, scenarios, pool, race,
+                  objective: ObjectiveLike = None):
+        """Successive-halving fan grid (``core/race.py``): a
+        ``race.RaceOutcome``."""
+        from repro_torch.core.race import race_grid as _race_grid
+        return _race_grid(scenarios, pool, race, objective, engine=self)
+
+    def decide_race(self, state: SimState, pool: EnginePool, race,
+                    objective: ObjectiveLike = None):
+        """One raced decision cycle: ``(Decision, race.RaceOutcome)``."""
+        from repro_torch.core.race import decide_race as _decide_race
+        return _decide_race(state, pool, race, objective, engine=self)
+
+    def _fan(self, scenarios, pool, spec: FanSpec, objective, weights,
+             lo: int, width: int) -> FanOutcome:
+        goal = resolve_goal(objective, weights)
+        pool = as_pool(pool)
+        S = int(scenarios.total_nodes.shape[0])
+        P = pool_size(pool)
+        plan = self.plan(pool)            # fork f = (s·width + w)·P + p
+        r = torch.arange(S * width, device=self.device)
+        rows = perturb_window(*_scenario_arrays(scenarios, self.device),
+                              spec, r, lo, width, S)
+        res, metrics = _replay_impl(
+            self, *_assemble_replay_inputs(
+                *rows, _pool_to(pool, self.device), P),
+            plan * (S * width) if plan is not None else None)
+        member, costs, best, ci, cwidth = fan_select(
+            goal, metrics, res.deadlocked, width, P)
+        rs = lambda x: x.reshape((S, width, P) + x.shape[1:])  # noqa: E731
+        return FanOutcome(
+            start_t=rs(res.state.jobs.start_t),
+            end_t=rs(res.state.jobs.end_t),
+            metrics=DrainMetrics(*(rs(m) for m in metrics)),
+            deadlocked=rs(res.deadlocked),
+            events=rs(res.events),
+            result=res,
+            member_costs=member, costs=costs, best=best,
+            cost_ci=ci, fan_width=cwidth)
+
     def _replay(self, scenarios, pool, objective, weights, grid: bool
                 ) -> ReplayOutcome:
         goal = resolve_goal(objective, weights)
@@ -384,6 +546,136 @@ def _decide_impl(engine: DrainEngine, state: SimState, pool: EnginePool,
         # sorted like the reference's jitted dict output
         cost_terms=dict(sorted(objective.cost_terms(metrics).items())),
     )
+
+
+def _decide_ensemble(engine: DrainEngine, state: SimState, pool: EnginePool,
+                     key: torch.Tensor, n_ens: int, noise: float,
+                     objective: Objective = DEFAULT_OBJECTIVE,
+                     plan: HoistPlan = None) -> Decision:
+    """k·n_ens forks through one drain, fork f = e·k + p.  Member e's
+    estimates are scaled by ``exp(noise·ε_e − noise²/2)``, with ``ε_0``
+    set to 0 — as in the reference, whose member 0 therefore keeps the
+    factor ``exp(−noise²/2)`` (ROADMAP C10)."""
+    k = pool_size(pool)
+    cap = state.jobs.capacity
+    eps = prng.normal(key, (n_ens, cap))
+    eps = torch.cat([torch.zeros_like(eps[:1]), eps[1:]])
+    scale = prng.exp_f32(prng._fma(eps, noise, -(0.5 * noise * noise)))
+    est_b = scale.repeat_interleave(k, 0) * state.jobs.est_runtime[None, :]
+
+    states = broadcast_state(state, n_ens * k)
+    states = states._replace(jobs=states.jobs._replace(est_runtime=est_b))
+    eval_mask = state.jobs.state == QUEUED
+    res = _drain_impl(engine, states, tile_pool(pool, n_ens),
+                      plan * n_ens if plan is not None else None)
+    member_metrics = DrainMetrics(*(
+        m.reshape(n_ens, k) for m in state_metrics(res.state, eval_mask)))
+    mean_metrics = DrainMetrics(*(m.mean(0) for m in member_metrics))
+    member_dead = res.deadlocked.reshape(n_ens, k)
+    dead = member_dead.any(0)
+    costs = torch.where(dead, torch.inf, objective.costs(mean_metrics))
+    best = scoring.select_policy(costs)
+    # member costs back the CI/width stamps only: selection is the cost
+    # of the MEAN metrics
+    member_costs = torch.where(member_dead, torch.inf,
+                               objective.costs(member_metrics))
+    ci, width = member_uncertainty(member_costs, axis=0)
+    return Decision(
+        policy_index=best,
+        costs=costs,
+        run_mask=res.first_started.reshape(n_ens, k, cap)[0, best],
+        metrics=mean_metrics,
+        deadlocked=dead,
+        cost_terms=dict(sorted(objective.cost_terms(mean_metrics).items())),
+        cost_ci=ci,
+        fan_width=width,
+    )
+
+
+def _fan_drain(engine: DrainEngine, state: SimState, pool: EnginePool,
+               spec: FanSpec, objective: Objective, plan: HoistPlan,
+               lo: int, width: int):
+    """Members ``φ ∈ [lo, lo+width)`` of a drain-side fan through one
+    drain, fork f = w·k + p (member φ = lo + w).  The draws are the
+    replay fan's ``_member_draws`` chains at s=0 (a decision has one base
+    snapshot): ``runtime_noise`` scales the walltime ESTIMATES (the
+    drain's predicted ends) and ``failure_prob`` takes nodes away.
+    Returns (result, member metrics, member deadlocks, member costs),
+    each (width, k)-leading."""
+    k = pool_size(pool)
+    dist = as_distributional(objective)
+    dev = state.now.device
+    phi = lo + torch.arange(width, device=dev)
+    states = broadcast_state(state, width * k)
+    if not spec.degenerate:
+        z, _, u = _member_draws(spec.seed, torch.zeros_like(phi), phi,
+                                state.jobs.capacity)
+        exact = phi == 0
+        if spec.runtime_noise > 0.0:
+            scale = lognormal_scale(z, spec.runtime_noise)   # (W, J)
+            est = state.jobs.est_runtime[None, :]
+            est_m = torch.where(exact[:, None], est, est * scale)
+            states = states._replace(jobs=states.jobs._replace(
+                est_runtime=est_m.repeat_interleave(k, 0)))
+        if spec.failure_prob > 0.0:
+            down = failure_downs(spec, torch.zeros_like(phi), phi, u,
+                                 state.total_nodes.expand(width))
+            down_b = down.repeat_interleave(k)
+            states = states._replace(
+                free_nodes=torch.clamp(states.free_nodes - down_b, min=0),
+                total_nodes=torch.clamp(states.total_nodes - down_b, min=1))
+    eval_mask = state.jobs.state == QUEUED
+    res = _drain_impl(engine, states, tile_pool(pool, width),
+                      plan * width if plan is not None else None)
+    member_metrics = DrainMetrics(*(
+        m.reshape(width, k) for m in state_metrics(res.state, eval_mask)))
+    member_dead = res.deadlocked.reshape(width, k)
+    member_costs = torch.where(member_dead, torch.inf,
+                               dist.member_costs(member_metrics))
+    return res, member_metrics, member_dead, member_costs
+
+
+def _decide_fan(engine: DrainEngine, state: SimState, pool: EnginePool,
+                spec: FanSpec, objective: Objective = DEFAULT_OBJECTIVE,
+                plan: HoistPlan = None) -> Decision:
+    """k·F forks through one drain (``_fan_drain`` over all F members);
+    deadlocked members cost +inf, so a policy whose tail deadlocks is as
+    bad as the reduction is risk-averse."""
+    k = pool_size(pool)
+    dist = as_distributional(objective)
+    res, member_metrics, member_dead, member_costs = _fan_drain(
+        engine, state, pool, spec, objective, plan, 0, spec.n)
+    costs = dist.reduce_fan(member_costs)                    # (k,)
+    best = scoring.select_policy(costs)
+    ci, width = member_uncertainty(member_costs, axis=0)
+    mean_metrics = DrainMetrics(*(m.mean(0) for m in member_metrics))
+    return Decision(
+        policy_index=best,
+        costs=costs,
+        run_mask=res.first_started.reshape(
+            spec.n, k, state.jobs.capacity)[0, best],
+        metrics=mean_metrics,
+        deadlocked=member_dead.any(0),
+        cost_terms=dict(sorted(dist.cost_terms(mean_metrics).items())),
+        cost_ci=ci,
+        fan_width=width,
+    )
+
+
+def _decide_fan_window(engine: DrainEngine, state: SimState,
+                       pool: EnginePool, spec: FanSpec,
+                       objective: Objective, plan: HoistPlan, lo: int,
+                       width: int):
+    """The drain-side racing rung: members ``[lo, lo+width)``, each
+    bitwise the full fan's.  Returns (member costs (W, k), member
+    deadlocks, member metrics, member 0's first-event starts (k, J)) for
+    the race controller to accumulate."""
+    k = pool_size(pool)
+    res, member_metrics, member_dead, member_costs = _fan_drain(
+        engine, state.to(engine.device), _pool_to(pool, engine.device),
+        spec, objective, plan, lo, width)
+    first0 = res.first_started.reshape(width, k, -1)[0]
+    return member_costs, member_dead, member_metrics, first0
 
 
 # ----------------------------------------------------------------------
@@ -465,6 +757,39 @@ def grid_select(objective: Objective, metrics: DrainMetrics,
     costs = objective.costs(grid)                               # (S, P)
     costs = torch.where(deadlocked.reshape(-1, P), torch.inf, costs)
     return costs, torch.argmin(costs, dim=-1)
+
+
+def member_uncertainty(member_costs: torch.Tensor, axis: int = -2):
+    """``(ci, width)`` over the fan axis of per-member costs: the 95%
+    normal CI half-width of the member mean, ``1.96·σ/√F`` (population
+    σ), and the worst − best spread.  A non-finite member (a deadlocked
+    future) poisons both to +inf."""
+    F = member_costs.shape[axis]
+    fin = torch.isfinite(member_costs)
+    finite = fin.all(axis)
+    safe = torch.where(fin, member_costs, 0.0)
+    dev = safe - safe.mean(axis, keepdim=True)
+    std = prng.sqrt_f32((dev * dev).mean(axis))
+    ci = 1.96 * std / float(np.sqrt(F))
+    width = member_costs.amax(axis) - member_costs.amin(axis)
+    return (torch.where(finite, ci, torch.inf),
+            torch.where(finite, width, torch.inf))
+
+
+def fan_select(objective: ObjectiveLike, metrics: DrainMetrics,
+               deadlocked: torch.Tensor, F: int, P: int):
+    """Distributional selection over a flat (k = S·F·P) fan batch: the
+    inner goal per member (deadlocked members at +inf), the goal's
+    reduction over the fan axis (plain goals lift to ``mean:``) and the
+    argmin per scenario.  Returns ``(member_costs (S, F, P), costs
+    (S, P), best (S,), ci, width)``."""
+    dist = as_distributional(objective)
+    grid = DrainMetrics(*(m.reshape(-1, F, P) for m in metrics))
+    member = torch.where(deadlocked.reshape(-1, F, P), torch.inf,
+                         dist.member_costs(grid))
+    costs = dist.reduce_fan(member)
+    ci, width = member_uncertainty(member, axis=-2)
+    return member, costs, torch.argmin(costs, dim=-1), ci, width
 
 
 def _replay_impl(engine: DrainEngine, states: SimState,

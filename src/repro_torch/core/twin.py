@@ -12,32 +12,36 @@ the mirror to the engine's device once, drains there, and reads the
 decision back once.
 
 Hardened ingestion (dead letters, sequence tracking, retries, probe
-resyncs) and the deadline-guard ladder are as in the reference.  Not
-ported yet: ensemble, fan and race decisions (ROADMAP A6/A7) and
-crash-safe ``snapshot``/``restore`` (A9).
+resyncs), the deadline-guard ladder and the Monte-Carlo decision modes
+(``ensemble``, ``fan``, ``race``, with their level-1 shrink) are as in
+the reference.  The ensemble's key chain is the reference's threefry
+(``prng``): the twin splits its key before every ensemble decision, so a
+co-simulation draws the same members.  Not ported yet: crash-safe
+``snapshot``/``restore`` (A9).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import sync, telemetry
+from repro_torch.core import prng, sync, telemetry
 from repro_torch.core.engine import DrainEngine
 from repro_torch.core.events import (BusReadError, DeadLetter, Event, EventBus,
                                      EventKind, SeqTracker, read_with_retry,
                                      validate_event)
+from repro_torch.core.fan import FanSpec, normalize_fan
 from repro_torch.core.guard import DeadlineGuard, GuardSpec
 from repro_torch.core.objective import ObjectiveLike, resolve_goal
 from repro_torch.core.policies import (PAPER_POOL, PolicyPool, PolicySpec,
                                        PoolLike, normalize_pool)
+from repro_torch.core.race import RaceSpec, normalize_race
 from repro_torch.core.scoring import ScoreWeights
 from repro_torch.core.state import QUEUED, SimState, empty_state
 from repro_torch.device import DeviceLike
-
-_NOT_PORTED = "is not yet ported to repro_torch"
 
 
 def _fork_pool(pool: PolicyPool, p: int) -> PolicyPool:
@@ -58,8 +62,7 @@ class SchedTwin:
     Parameters are the reference's (see ``repro.core.twin.SchedTwin``),
     plus ``device``: where the what-if engine runs when no ``engine`` is
     given (default ``cuda``).  ``ensemble > 1``, ``fan`` and ``race``
-    raise ``NotImplementedError``; the ensemble's ``ensemble_noise`` and
-    ``seed`` are left out until then.
+    are mutually exclusive decision modes.
     """
 
     CONSUMER = "schedtwin"
@@ -74,9 +77,11 @@ class SchedTwin:
                  weights: Optional[ScoreWeights] = None,
                  free_nodes_probe: Optional[Callable[[], int]] = None,
                  ensemble: int = 1,
-                 fan=None,
-                 race=None,
+                 ensemble_noise: float = 0.3,
+                 fan: Optional[FanSpec] = None,
+                 race: Optional[RaceSpec] = None,
                  engine: Optional[DrainEngine] = None,
+                 seed: int = 0,
                  guard=None,
                  jobs_probe: Optional[Callable[[], dict]] = None,
                  fallback_pool: PoolLike = PAPER_POOL,
@@ -86,15 +91,11 @@ class SchedTwin:
                  read_retries: int = 3,
                  read_backoff_s: float = 0.01,
                  device: DeviceLike = "cuda") -> None:
-        if ensemble > 1:
-            raise NotImplementedError(f"ensemble decisions {_NOT_PORTED} "
-                                      f"(ROADMAP A6)")
-        if fan is not None:
-            raise NotImplementedError(f"fan decisions {_NOT_PORTED} "
-                                      f"(ROADMAP A7)")
-        if race is not None:
-            raise NotImplementedError(f"race decisions {_NOT_PORTED} "
-                                      f"(ROADMAP A7)")
+        if fan is not None and ensemble > 1:
+            raise ValueError("fan= and ensemble>1 are mutually exclusive")
+        if race is not None and (fan is not None or ensemble > 1):
+            raise ValueError(
+                "race= is mutually exclusive with fan= and ensemble>1")
         self.bus = bus
         self.qrun = qrun
         self.engine = (engine if engine is not None
@@ -110,6 +111,11 @@ class SchedTwin:
                                            device="cpu")
         self.telemetry = telemetry.Telemetry()
         self.free_nodes_probe = free_nodes_probe
+        self.ensemble = ensemble
+        self.ensemble_noise = ensemble_noise
+        self.fan = normalize_fan(fan) if fan is not None else None
+        self.race = normalize_race(race) if race is not None else None
+        self._key = prng.PRNGKey(seed)
         if isinstance(guard, DeadlineGuard):
             self.guard: Optional[DeadlineGuard] = guard
         elif isinstance(guard, GuardSpec):
@@ -221,10 +227,12 @@ class SchedTwin:
 
     # ------------------------------------------------------------------
     def _decide_at_level(self, level: int):
-        """One decision at the given ladder level.  Returns
-        ``(decision, names, source)``.  With no ensemble/fan/race
-        configured, level 1 has nothing to shrink and falls through to
-        the static pool (level 2), as in the reference."""
+        """One decision at the given ladder level.  Returns ``(decision,
+        race_out, names, source)``: ``names`` label the decision's forks
+        and ``source`` says which pool the winning index refers to (the
+        incumbent bookkeeping).  Level 0 is the configured mode; level 1
+        shrinks a race, fan or ensemble by the guard's ``shrink`` and a
+        mode with nothing to shrink falls through to the static pool."""
         if level >= 3 and self._incumbent is not None:
             # hold the incumbent: one k=1 schedule pass, no comparison
             src, idx = self._incumbent
@@ -232,14 +240,48 @@ class SchedTwin:
             pool1 = _fork_pool(base, idx)
             decision = self.engine.decide(self.state, pool1.spec,
                                           self.objective)
-            return decision, pool1.names, self._incumbent
-        if level >= 1:
+            return decision, None, pool1.names, self._incumbent
+        if level >= 2 or (level == 1 and self.race is None
+                          and self.fan is None and self.ensemble <= 1):
             decision = self.engine.decide(self.state, self._fallback_spec,
                                           self.objective)
-            return decision, self.fallback_pool.names, ("fallback", None)
+            return (decision, None, self.fallback_pool.names,
+                    ("fallback", None))
+        race, fan, n_ens = self.race, self.fan, self.ensemble
+        if level == 1:
+            shrink = self.guard.spec.shrink
+            if race is not None:
+                fan1 = dataclasses.replace(
+                    race.fan, n=max(race.f0, int(np.ceil(race.fan.n
+                                                         * shrink))))
+                bm = (race.budget_ms * shrink if race.budget_ms
+                      else race.budget_ms)
+                race = dataclasses.replace(race, fan=fan1, budget_ms=bm)
+            elif fan is not None:
+                fan = dataclasses.replace(
+                    fan, n=max(1, int(np.ceil(fan.n * shrink))))
+            else:
+                n_ens = max(2, int(np.ceil(n_ens * shrink)))
+        if race is not None:
+            # the host pool: the race indexes its survivors there
+            decision, race_out = self.engine.decide_race(
+                self.state, self.pool.spec, race, objective=self.objective)
+            return decision, race_out, self.pool.names, ("pool", None)
+        if fan is not None:
+            decision = self.engine.decide_fan(
+                self.state, self._pool_spec, fan, objective=self.objective)
+            return decision, None, self.pool.names, ("pool", None)
+        if n_ens > 1:
+            # the key is split before every ensemble decision, shrunk
+            # ones too, as the reference consumes it
+            self._key, sub = prng.split(self._key)
+            decision = self.engine.decide_ensemble(
+                self.state, self._pool_spec, sub, n_ens=n_ens,
+                noise=self.ensemble_noise, objective=self.objective)
+            return decision, None, self.pool.names, ("pool", None)
         decision = self.engine.decide(self.state, self._pool_spec,
                                       self.objective)
-        return decision, self.pool.names, ("pool", None)
+        return decision, None, self.pool.names, ("pool", None)
 
     def _decision_cycle(self, t: float) -> None:
         """④→⑦ : sync, simulate, select, feed back."""
@@ -249,7 +291,8 @@ class SchedTwin:
 
         level = self.guard.plan() if self.guard is not None else 0
         with telemetry.StopWatch(self._clock) as sw:
-            decision, names, source = self._decide_at_level(level)
+            decision, race_out, names, source = self._decide_at_level(
+                level)
             run_mask = _host(decision.run_mask)  # waits for the device
         guard_fields = {}
         if self.guard is not None:
@@ -271,11 +314,27 @@ class SchedTwin:
         term_costs = {name: {term: float(v[i])
                              for term, v in term_arrays.items()}
                       for i, name in enumerate(names)}
+        # fan/ensemble decisions carry device-computed per-policy
+        # uncertainty; recorded as-is, no host math
+        cost_ci = ({name: float(c) for name, c in
+                    zip(names, _host(decision.cost_ci))}
+                   if decision.cost_ci is not None else {})
+        fan_width = ({name: float(w) for name, w in
+                      zip(names, _host(decision.fan_width))}
+                     if decision.fan_width is not None else {})
+        race_fields = {}
+        if race_out is not None:
+            race_fields = dict(
+                race_rungs=len(race_out.rungs),
+                race_members=int(race_out.members),
+                race_separation=float(np.min(race_out.separation)),
+                race_stopped=race_out.stopped)
         self.telemetry.record(telemetry.CycleRecord(
             time=t, wall_seconds=sw.seconds, policy=winner,
             costs=costs, n_started=len(job_ids), started_jobs=job_ids,
             objective=str(self.objective), term_costs=term_costs,
-            **guard_fields))
+            cost_ci=cost_ci, fan_width=fan_width,
+            fan_size=decision.fan_size, **race_fields, **guard_fields))
 
         if job_ids:
             # ⑦ qrun — the physical system emits RUNJOB events that flow

@@ -8,17 +8,29 @@
         --pool "extended,wfp:a=1..5x5:tau=600..7200x5"     # k=32 DRAS sweep
     python -m repro_torch.launch.twin_loop --replay-grid 8 \\
         --trace poisson --jobs 48 --pool extended          # S x P grid
+    python -m repro_torch.launch.twin_loop --fan 64 --fan-noise 0.3 \\
+        --objective "p95:avg_wait"     # Monte-Carlo fan, tail objective
+    python -m repro_torch.launch.twin_loop --fan 64 --race --budget-ms 500
+    python -m repro_torch.launch.twin_loop --ensemble 8
+    python -m repro_torch.launch.twin_loop --replay-grid 8 --fan 128 \\
+        --fan-fail 0.2 --objective "cvar:0.9:score" --prune
 
-Port of the co-simulation and plain ``--replay-grid`` modes of
-``repro.launch.twin_loop``: same flags, same trace generators and the
-same printed report.  ``--replay-grid S`` skips the co-simulation and
-evaluates the (S scenarios × pool) baseline grid in one batched replay
-(``engine.replay_grid``), printing per-policy metrics over the
-scenarios and each scenario's winner under ``--objective``.
-``--device`` (default ``cuda``) picks where the engine runs;
-``--backend auto`` takes the CUDA kernel on ``cuda`` and the plain pass
-on ``cpu``.  Training, fans, races, ensembles, chaos, snapshots and the
-sharded or block-streamed grid are not ported yet and are rejected.
+Port of ``repro.launch.twin_loop``: same flags, same trace generators
+and the same printed report.  ``--replay-grid S`` skips the
+co-simulation and evaluates the (S scenarios × pool) baseline grid in
+one batched replay (``engine.replay_grid``), printing per-policy metrics
+over the scenarios and each scenario's winner under ``--objective``.
+``--fan F`` judges every policy over an on-device fan of F perturbed
+futures (``--fan-noise``, ``--fan-burst``, ``--fan-fail``, keyed by
+``--fan-seed``): in twin mode each decision gains confidence stamps, in
+``--replay-grid`` mode the grid becomes S × F × P and ``--prune`` drops
+dominated policies after a low-F pre-pass.  ``--race`` races the fan by
+successive halving up to F_max = ``--fan`` (``--race-f0``,
+``--budget-ms``, ``--race-members``); ``--ensemble N`` decides over N
+estimate-noise members.  ``--device`` (default ``cuda``) picks where the
+engine runs; ``--backend auto`` takes the CUDA kernel on ``cuda`` and
+the plain pass on ``cpu``.  Training, chaos, snapshots and the sharded
+or block-streamed grid are not ported yet and are rejected.
 """
 from __future__ import annotations
 
@@ -36,14 +48,15 @@ from repro_torch.cluster.workload import (JobSpec, bursty_trace,
 from repro_torch.configs.schedtwin import ReplayGridConfig
 from repro_torch.core.engine import PASS_BACKENDS, DrainEngine
 from repro_torch.core.events import EventBus
+from repro_torch.core.fan import FanSpec, pruned_fan_grid
 from repro_torch.core.objective import Objective, validate_objective
 from repro_torch.core.policies import parse_pool
+from repro_torch.core.race import RaceSpec, race_grid
 from repro_torch.core.twin import SchedTwin
 
 #: Flags of the reference CLI whose modes are not ported yet, with the
 #: ROADMAP item that brings each.
-_UNPORTED = {"train": "--train (A9)", "fan": "--fan (A7)",
-             "race": "--race (A7)", "ensemble": "--ensemble (A6)",
+_UNPORTED = {"train": "--train (A9)",
              "chaos": "--chaos (A9)", "snapshot_dir": "--snapshot-dir (A9)",
              "shard": "--shard (A8)", "block_size": "--block-size (A8)",
              "prefetch": "--prefetch (A8)"}
@@ -62,6 +75,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--objective", default="score",
                     help="optimization goal grammar "
                          "(objective.parse_objective)")
+    ap.add_argument("--ensemble", type=int, default=1,
+                    help="decide over N estimate-noise members")
+    ap.add_argument("--fan", type=int, default=0, metavar="F",
+                    help="decide over an on-device Monte-Carlo fan of F "
+                         "perturbed futures per policy; works in twin "
+                         "mode and with --replay-grid")
+    ap.add_argument("--fan-noise", type=float, default=0.3,
+                    help="lognormal runtime-noise sigma for fan members "
+                         "(mean-preserving; member 0 stays exact)")
+    ap.add_argument("--fan-burst", type=float, default=0.0,
+                    help="arrival-burst warp amplitude in [0,1) for fan "
+                         "members (replay mode only)")
+    ap.add_argument("--fan-fail", type=float, default=0.0,
+                    help="per-member node-failure probability")
+    ap.add_argument("--fan-seed", type=int, default=0,
+                    help="fan PRNG seed (draws keyed per (scenario, "
+                         "member))")
+    ap.add_argument("--race", action="store_true",
+                    help="race the --fan by successive halving up to "
+                         "F_max = --fan")
+    ap.add_argument("--race-f0", type=int, default=8, metavar="F0",
+                    help="rung-0 fan size for --race (default 8)")
+    ap.add_argument("--budget-ms", type=float, default=0.0, metavar="MS",
+                    help="anytime wall-clock budget per race")
+    ap.add_argument("--race-members", type=int, default=0, metavar="M",
+                    help="anytime (scenario, member, policy) triple "
+                         "budget per race")
+    ap.add_argument("--prune", action="store_true",
+                    help="goal-conditioned pool pruning for --replay-grid "
+                         "--fan (low-F pre-pass, then the full fan on the "
+                         "survivors)")
     ap.add_argument("--failures", type=int, default=0)
     ap.add_argument("--budget-s", type=float, default=0.0, metavar="S",
                     help="wall-clock budget per decision cycle "
@@ -84,10 +128,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch", type=int, default=2,
                     help=argparse.SUPPRESS)
     ap.add_argument("--train", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--fan", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--race", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--ensemble", type=int, default=1,
-                    help=argparse.SUPPRESS)
     ap.add_argument("--chaos", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--snapshot-dir", default="", help=argparse.SUPPRESS)
     return ap
@@ -111,6 +151,25 @@ def make_failures(args, trace: List[JobSpec]) -> List[FailureSpec]:
             for _ in range(args.failures)]
 
 
+def make_fan(args) -> Optional[FanSpec]:
+    """The ``FanSpec`` of the --fan* flags (None when off)."""
+    if not args.fan:
+        return None
+    return FanSpec(n=args.fan, runtime_noise=args.fan_noise,
+                   burst_amplitude=args.fan_burst,
+                   failure_prob=args.fan_fail, seed=args.fan_seed)
+
+
+def make_race(args) -> Optional[RaceSpec]:
+    """The ``RaceSpec`` of --race/--race-f0/--budget-ms/--race-members
+    over the --fan* spec (None when --race is off)."""
+    if not args.race:
+        return None
+    return RaceSpec(fan=make_fan(args), f0=args.race_f0,
+                    budget_ms=args.budget_ms or None,
+                    max_members=args.race_members or None)
+
+
 def co_simulate(args, engine: Optional[DrainEngine] = None):
     """Run the twin against the emulator; returns (report, twin, bus)."""
     engine = engine if engine is not None else DrainEngine(
@@ -122,18 +181,21 @@ def co_simulate(args, engine: Optional[DrainEngine] = None):
     em = ClusterEmulator(trace, args.nodes, bus=bus,
                          failures=make_failures(args, trace),
                          check_invariants=True, engine=engine)
+    race = make_race(args)
     twin = SchedTwin(
         bus=bus, qrun=em.qrun, total_nodes=args.nodes,
         max_jobs=em.max_jobs, pool=pool, objective=goal,
         free_nodes_probe=lambda: em.free_nodes,
         jobs_probe=em.jobs_view, guard=args.budget_s or None,
-        engine=engine)
+        ensemble=args.ensemble, fan=None if race else make_fan(args),
+        race=race, engine=engine)
     report = em.run(on_event=twin.pump, objective=goal,
                     on_quiesce=twin.flush)
     return report, twin, bus
 
 
-def print_report(report: RunReport, twin: SchedTwin, bus: EventBus) -> None:
+def print_report(report: RunReport, twin: SchedTwin, bus: EventBus,
+                 race: Optional[RaceSpec] = None) -> None:
     print(f"jobs={report.n_jobs} events={report.n_events} "
           f"restarts={report.n_restarts}")
     for k, v in report.metric_dict().items():
@@ -150,6 +212,31 @@ def print_report(report: RunReport, twin: SchedTwin, bus: EventBus) -> None:
         print(f"  whatif breakdown {name:>10s}: {parts}")
     print("policy mix:", {k: f"{v:.1f}%" for k, v in
                           twin.telemetry.policy_start_distribution().items()})
+    conf = twin.telemetry.confidence_stats()
+    if conf:
+        # device-computed fan uncertainty; racing makes the fan size
+        # vary per cycle, so the range actually used is reported
+        fmin = min(st["min_fan"] for st in conf.values())
+        fmax = max(st["max_fan"] for st in conf.values())
+        f_txt = (f"F={fmin:.0f}" if fmin == fmax
+                 else f"F={fmin:.0f}..{fmax:.0f}")
+        parts = " ".join(
+            f"{n}=±{st['mean_ci']:.2f}(w{st['mean_width']:.1f})"
+            for n, st in sorted(conf.items()))
+        print(f"fan confidence ({f_txt}, mean 95% CI half-width, "
+              f"member spread): {parts}")
+    if race is not None and twin.telemetry.cycles:
+        cs = [c for c in twin.telemetry.cycles if c.race_stopped]
+        if cs:
+            memb = sum(c.race_members for c in cs)
+            full = len(cs) * race.f_max * len(twin.pool)
+            stops = {}
+            for c in cs:
+                stops[c.race_stopped] = stops.get(c.race_stopped, 0) + 1
+            print(f"race: {memb} members over {len(cs)} cycles vs "
+                  f"{full} fixed-F ({full / max(memb, 1):.1f}x "
+                  f"reduction), mean {memb / len(cs):.1f}/cycle, "
+                  f"stops {stops}")
     lat = twin.telemetry.cycle_latency_stats()
     print(f"cycle latency: mean {lat['mean_s'] * 1e3:.1f} ms, "
           f"p50 {lat['p50_s'] * 1e3:.1f} ms over {lat['n']} cycles")
@@ -165,28 +252,83 @@ def print_report(report: RunReport, twin: SchedTwin, bus: EventBus) -> None:
     print(f"bus health: {bus.health()}")
 
 
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+def raced_grid(args, engine: DrainEngine, goal: Objective, pool,
+               scen) -> None:
+    """--replay-grid --race: the raced S × F × P grid.  Eliminated
+    policies never reach full fidelity, so the report is the race ledger
+    (rungs, members, separation), not the per-policy metric table."""
+    race = make_race(args)
+    t0 = time.perf_counter()
+    out = race_grid(scen, pool.spec, race, goal, engine=engine)
+    wall = time.perf_counter() - t0
+    S = int(out.costs.shape[0])
+    print(f"raced grid: S={S} scenarios x F_max={race.f_max} x "
+          f"P={len(pool)} policies (one device per rung) in {wall:.2f}s")
+    print(f"members: {out.members} of {out.members_full} fixed-F "
+          f"({out.members_full / max(out.members, 1):.1f}x reduction), "
+          f"{len(out.rungs)} rungs, stopped={out.stopped}")
+    for r in out.rungs:
+        el = ([pool.names[i] for i in r.eliminated]
+              if r.eliminated else "-")
+        print(f"  rung [{r.lo:3d},{r.hi:3d}) x {len(r.active)} "
+              f"policies: {r.members} members, sep={r.separation:+.2f}, "
+              f"eliminated {el}")
+    names = [pool.names[int(i)] for i in out.keep]
+    print(f"survivors at F={out.fan_size}: {names}")
+    print(f"objective {goal}: per-scenario winners "
+          f"{[pool.names[int(b)] for b in out.best]}")
+
+
 def replay_grid(args, engine: DrainEngine, goal: Objective) -> None:
     """--replay-grid: the S × P baseline grid as one batched replay, with
-    the per-scenario policy selection under ``goal``."""
+    the per-scenario policy selection under ``goal`` (S × F × P with
+    --fan: every policy judged over F perturbed futures)."""
     cfg = ReplayGridConfig(scenarios=args.replay_grid, trace=args.trace,
                            n_jobs=args.jobs, total_nodes=args.nodes,
                            pool=args.pool, objective=goal, seed=args.seed,
                            backend=engine.backend, device=engine.device)
     pool = cfg.make_pool()
     scen = cfg.make_scenarios()
+    if args.race:
+        return raced_grid(args, engine, cfg.make_objective(), pool, scen)
+    fan = make_fan(args)
+    prune_info = None
     t0 = time.perf_counter()
-    out = engine.replay_grid(scen, pool.spec, cfg.make_objective())
-    host = lambda t: t.detach().cpu().numpy()              # noqa: E731
-    host(out.end_t)                                        # wait for it
+    if fan is not None and args.prune:
+        out, prune_info = pruned_fan_grid(scen, pool.spec, fan,
+                                          cfg.make_objective(),
+                                          engine=engine)
+        mode = "one device computation, pruned"
+    elif fan is not None:
+        out = engine.fan_grid(scen, pool.spec, fan, cfg.make_objective())
+        mode = "one device computation"
+    else:
+        out = engine.replay_grid(scen, pool.spec, cfg.make_objective())
+        mode = "one device computation"
+    _host(out.end_t)                                       # wait for it
     wall = time.perf_counter() - t0
-    S, P = out.deadlocked.shape
-    print(f"replay grid: S={S} scenarios x P={P} policies "
-          f"({S * P} forks, one device computation) in {wall:.2f}s")
+    S = int(out.deadlocked.shape[0])
+    P = int(out.deadlocked.shape[-1])
+    fan_txt = f" x F={fan.n} fan members" if fan is not None else ""
+    print(f"replay grid: S={S} scenarios{fan_txt} x P={P} policies "
+          f"({int(np.prod(out.deadlocked.shape))} forks, {mode}) "
+          f"in {wall:.2f}s")
+    names = pool.names
+    if prune_info is not None:
+        names = [pool.names[int(i)] for i in prune_info.keep]
+        print(f"prune: pre-pass F={prune_info.pre_members.shape[1]} "
+              f"dropped {prune_info.rate * 100:.0f}% of the pool; "
+              f"kept {names}")
     print(f"{'policy':>16s} {'avg_wait':>9s} {'max_wait':>9s} "
           f"{'avg_sd':>7s} {'util':>6s} {'dead':>5s} {'picked':>7s}")
-    m = {k: host(v) for k, v in out.metrics._asdict().items()}
-    dead, best = host(out.deadlocked), host(out.best)
-    for p, name in enumerate(pool.names):
+    # (S, P), or (S, F, P) under --fan: flattened to rows of P
+    m = {k: _host(v).reshape(-1, P) for k, v in out.metrics._asdict().items()}
+    dead, best = _host(out.deadlocked).reshape(-1, P), _host(out.best)
+    for p, name in enumerate(names):
         print(f"{name:>16s} "
               f"{float(np.mean(m['avg_wait'][:, p])):9.1f} "
               f"{float(np.mean(m['max_wait'][:, p])):9.1f} "
@@ -194,8 +336,16 @@ def replay_grid(args, engine: DrainEngine, goal: Objective) -> None:
               f"{float(np.mean(m['utilization'][:, p])):6.3f} "
               f"{int(dead[:, p].sum()):5d} "
               f"{int((best == p).sum()):4d}/{S}")
+    if fan is not None:
+        # device-computed per-policy uncertainty, scenario-averaged
+        ci, wd = _host(out.cost_ci), _host(out.fan_width)
+        parts = " ".join(
+            f"{n}={np.mean(ci[:, p]):.2f}±w{np.mean(wd[:, p]):.1f}"
+            for p, n in enumerate(names))
+        print(f"fan confidence (mean 95% CI half-width ± member "
+              f"spread): {parts}")
     print(f"objective {goal}: per-scenario winners "
-          f"{[pool.names[int(b)] for b in best]}")
+          f"{[names[int(b)] for b in best]}")
 
 
 def check_flags(ap: argparse.ArgumentParser, args) -> None:
@@ -204,10 +354,22 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
     for dest, flag in _UNPORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             ap.error(f"{flag} is not yet ported to repro_torch")
-    if args.replay_grid and args.failures:
+    if args.replay_grid and (args.failures or args.ensemble > 1):
         ap.error("--replay-grid evaluates static baselines; --failures "
                  "and --ensemble do not apply (run the co-simulation "
                  "for those)")
+    if args.fan and args.ensemble > 1:
+        ap.error("--fan and --ensemble are mutually exclusive "
+                 "(the fan subsumes the estimate-noise ensemble)")
+    if args.prune and not (args.fan and args.replay_grid):
+        ap.error("--prune applies to --replay-grid --fan")
+    if args.race and not args.fan:
+        ap.error("--race needs --fan F (F is the race's F_max)")
+    if args.race and args.prune:
+        ap.error("--race subsumes --prune (elimination is per rung)")
+    if (args.race_f0 != 8 or args.budget_ms or args.race_members) \
+            and not args.race:
+        ap.error("--race-f0/--budget-ms/--race-members apply to --race")
     if args.replay_grid and args.budget_s:
         ap.error("--chaos/--snapshot-dir/--budget-s apply to the twin "
                  "co-simulation, not --replay-grid")
@@ -230,7 +392,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.replay_grid:
         return replay_grid(args, engine, goal)
     report, twin, bus = co_simulate(args, engine)
-    print_report(report, twin, bus)
+    print_report(report, twin, bus, make_race(args))
 
 
 if __name__ == "__main__":

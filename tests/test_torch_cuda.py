@@ -67,6 +67,17 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
 * A block of ``des.REPLAY_BLOCK`` replay steps under
   ``torch.cuda.set_sync_debug_mode("error")``: no step waits for the
   device.
+* K1 at the Monte-Carlo paths' fork counts, k = 2048 (a 64-member fan
+  of the k=32 pool) and 16,384 (S·F·P = 8 × 64 × 32), on tight random
+  forks: bitwise its plain version, one launch each.
+* The threefry PRNG (``core.prng``) on the card against the CPU: keys,
+  bits, uniforms, normals, ``exp_f32`` and the fans' member draws and
+  domain fragilities identical (every operation is IEEE-exact).
+* A fan grid (S=2 × F=8 × P=7, noise, burst, failures) with backend
+  ``cuda`` against ``reference`` on the card, and against
+  ``replay_grid`` of its ``materialize_fan`` rows; ``decide_fan``,
+  ``decide_ensemble`` and ``decide_race`` on a snapshot, cuda against
+  reference: identical in every field; K1 launched on every cuda path.
 """
 import numpy as np
 import pytest
@@ -672,3 +683,137 @@ def test_replay_block_does_not_synchronise():
     assert int(c.it) == int(want.result.iters) > 2 * des.REPLAY_BLOCK
     assert torch.equal(c.st.jobs.start_t, want.result.state.jobs.start_t)
     assert torch.equal(c.events, want.result.events)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,J", [(2048, 256), (16384, 128)])
+def test_pass_at_fan_fork_counts(k, J):
+    """``<<<k, ...>>>`` puts forks on gridDim.x: k = 16,384 is one long
+    grid of blocks.  64 distinct random forks tiled to k, each copy's
+    order rotated among its queued ranks so copies differ."""
+    _card()
+    rng = np.random.default_rng(k)
+    forks = []
+    for _ in range(64):
+        n_run = int(rng.integers(0, J // 4))
+        n_q = int(rng.integers(0, J - n_run))
+        run = [(int(rng.integers(1, 8)), float(rng.integers(1, 6) * 600))
+               for _ in range(n_run)]
+        q = [(int(rng.integers(1, 8)), float(rng.integers(1, 8) * 600))
+             for _ in range(n_q)]
+        forks.append(_fork(J, int(rng.integers(0, 40)), run, q))
+    tiled = []
+    for i in range(k):
+        order, *rest = forks[i % 64]
+        nq = int((rest[0] == QUEUED).sum())
+        if nq:
+            shift = (i // 64) % nq
+            order = np.concatenate([np.roll(order[:nq], shift),
+                                    order[nq:]])
+        tiled.append((order, *rest))
+    _assert_k1(_stack(tiled, J))
+    _assert_k1(_stack(tiled, J, limit=J // 2))
+
+
+@pytest.mark.cuda
+def test_prng_on_the_card_matches_the_cpu():
+    from repro_torch.core import fan, prng
+    _card()
+    s = torch.arange(8).repeat_interleave(64)
+    phi = torch.arange(64).repeat(8)
+    cpu = fan._member_draws(0, s, phi, 1024)
+    gpu = fan._member_draws(0, s.cuda(), phi.cuda(), 1024)
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(0), s), phi)
+    gkeys = prng.fold_in(prng.fold_in(prng.PRNGKey(0, device="cuda"),
+                                      s.cuda()), phi.cuda())
+    assert torch.equal(keys, gkeys.cpu())
+    assert torch.equal(prng.bits(keys, (3, 5)), prng.bits(gkeys, (3, 5)).cpu())
+    assert torch.equal(prng.split(keys[7], 9), prng.split(gkeys[7], 9).cpu())
+    assert torch.equal(prng.normal(keys, (300,)),
+                       prng.normal(gkeys, (300,)).cpu())
+    x = torch.linspace(-80.0, 80.0, 100_001)
+    assert torch.equal(prng.exp_f32(x), prng.exp_f32(x.cuda()).cpu())
+    assert torch.equal(fan.lognormal_scale(cpu[0], 0.3),
+                       fan.lognormal_scale(gpu[0], 0.3).cpu())
+    assert torch.equal(fan._domain_fragility(3, torch.arange(8), 4),
+                       fan._domain_fragility(3, torch.arange(8).cuda(),
+                                             4).cpu())
+
+
+def _fan_grid_case():
+    from repro_torch.core.fan import FanSpec
+    scen = workload.stack_scenarios(
+        [workload.bursty_trace(24, 16, 4.0 + s, (1, 12), (30.0, 400.0),
+                               seed=s) for s in range(2)], 16, max_jobs=64)
+    spec = FanSpec(n=8, runtime_noise=0.3, burst_amplitude=0.2,
+                   failure_prob=0.2, failure_domains=2, seed=5)
+    return scen, parse_pool("extended").spec, spec
+
+
+@pytest.mark.cuda
+def test_fan_grid_cuda_matches_reference():
+    from repro_torch.core.fan import materialize_fan
+    _card()
+    scen, pool, spec = _fan_grid_case()
+    pe.LAUNCHES = 0
+    got = DrainEngine("cuda", device="cuda").fan_grid(scen, pool, spec,
+                                                      "cvar:0.9:score")
+    torch.cuda.synchronize()
+    assert pe.LAUNCHES > 0
+    launches = pe.LAUNCHES
+    ref = DrainEngine("reference", device="cuda")
+    want = ref.fan_grid(scen, pool, spec, "cvar:0.9:score")
+    assert pe.LAUNCHES == launches
+    for name in ("start_t", "end_t", "deadlocked", "events",
+                 "member_costs", "costs", "best", "cost_ci", "fan_width"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    mat = ref.replay_grid(materialize_fan(scen, spec, device="cuda"), pool,
+                          "avg_wait")
+    assert torch.equal(mat.start_t.reshape(got.start_t.shape), got.start_t)
+    assert torch.equal(mat.end_t.reshape(got.end_t.shape), got.end_t)
+
+
+@pytest.mark.cuda
+def test_monte_carlo_decisions_cuda_match_reference():
+    from repro_torch.core import prng, state as st
+    from repro_torch.core.fan import FanSpec
+    from repro_torch.core.race import RaceSpec
+    _card()
+    rng = np.random.default_rng(0)
+    snap = st.empty_state(128, 64, device="cpu")
+    for j in range(90):
+        snap = st.add_job(snap, j, float(j), int(rng.integers(1, 9)),
+                          float(rng.integers(1, 20) * 300))
+    free = 64
+    for j in range(90):
+        nd = int(snap.jobs.nodes[j])
+        if nd <= free:
+            snap = st.start_job(snap, j, float(j))
+            free -= nd
+    snap = snap._replace(now=torch.tensor(100.0))
+    pool = parse_pool("extended,wfp:a=1..3x3").spec
+    cuda = DrainEngine("cuda", device="cuda")
+    ref = DrainEngine("reference", device="cuda")
+    spec = FanSpec(n=16, runtime_noise=0.3, failure_prob=0.1, seed=2)
+    calls = {
+        "decide_fan": lambda e: e.decide_fan(snap, pool, spec,
+                                             "p95:avg_wait"),
+        "decide_ensemble": lambda e: e.decide_ensemble(
+            snap, pool, prng.PRNGKey(4), 8, 0.3),
+        "decide_race": lambda e: e.decide_race(
+            snap, pool, RaceSpec(fan=spec, f0=4), "p95:avg_wait")[0],
+    }
+    for name, call in calls.items():
+        pe.LAUNCHES = 0
+        got = call(cuda)
+        torch.cuda.synchronize()
+        assert pe.LAUNCHES > 0, name
+        pe.LAUNCHES = 0
+        want = call(ref)
+        assert pe.LAUNCHES == 0, name
+        for f in ("policy_index", "costs", "run_mask", "deadlocked",
+                  "cost_ci", "fan_width"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (name, f)
+        assert got.fan_size == want.fan_size

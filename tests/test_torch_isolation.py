@@ -9,7 +9,10 @@
   CPU, the twin's (the replay and the emulator's fast mode included)
   and the serving stack's alike, and every kernel
   wrapper (K1, K1', K2's two entries, K3, K4) raises for anything but
-  CPU or CUDA tensors.
+  CPU or CUDA tensors.  The Monte-Carlo entry points (``decide_fan``,
+  ``decide_ensemble``, ``fan_grid``, ``race_grid``, ``decide_race``,
+  ``pruned_fan_grid``, ``materialize_fan``, ``SchedTwin(fan=/race=/
+  ensemble=)``, ``twin_loop --fan/--race/--ensemble/--prune``) too.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -126,6 +129,50 @@ def test_entry_points_raise_for_cuda_without_a_card():
         "twin_loop.main --replay-grid": lambda: twin_loop.main(
             ["--replay-grid", "2", "--trace", "poisson", "--jobs", "4",
              "--nodes", "8"]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_monte_carlo_entry_points_raise_for_cuda_without_a_card():
+    """Fans, races and ensembles: asked for ``cuda`` (their default)
+    without a card, each raises; none goes on on the CPU."""
+    _no_card()
+    from repro_torch.core import fan, prng, race
+    trace = poisson_trace(4, 8, 8.0, (1, 8), (30.0, 90.0), seed=0)
+    scen = make_scenario(trace, 8)
+    ids = torch.zeros(1, dtype=torch.int32)
+    spec = fan.FanSpec(n=4, runtime_noise=0.3)
+    small = ["--trace", "poisson", "--jobs", "4", "--nodes", "8"]
+    calls = {
+        "decide_fan": lambda: DrainEngine().decide_fan(_cpu_state(), ids,
+                                                       spec),
+        "decide_ensemble": lambda: DrainEngine().decide_ensemble(
+            _cpu_state(), ids, prng.PRNGKey(0)),
+        "whatif.decide_ensemble": lambda: whatif.decide_ensemble(
+            _cpu_state(), "paper", prng.PRNGKey(0)),
+        "fan_grid": lambda: DrainEngine(device="cuda").fan_grid(scen, ids,
+                                                                spec),
+        "race_grid": lambda: race.race_grid(scen, ids, spec),
+        "decide_race": lambda: race.decide_race(_cpu_state(), ids, spec),
+        "pruned_fan_grid": lambda: fan.pruned_fan_grid(scen, ids, spec),
+        "materialize_fan": lambda: fan.materialize_fan(scen, spec,
+                                                       device="cuda"),
+        "SchedTwin(fan=)": lambda: SchedTwin(EventBus(), lambda j, t: None,
+                                             8, fan=spec),
+        "SchedTwin(race=)": lambda: SchedTwin(
+            EventBus(), lambda j, t: None, 8, race=race.RaceSpec(fan=spec)),
+        "SchedTwin(ensemble=)": lambda: SchedTwin(
+            EventBus(), lambda j, t: None, 8, ensemble=4),
+        "twin_loop.main --fan": lambda: twin_loop.main(small + ["--fan",
+                                                                "4"]),
+        "twin_loop.main --race": lambda: twin_loop.main(
+            small + ["--fan", "4", "--race"]),
+        "twin_loop.main --ensemble": lambda: twin_loop.main(
+            small + ["--ensemble", "2"]),
+        "twin_loop.main --replay-grid --fan --prune": lambda: twin_loop.main(
+            ["--replay-grid", "2", "--fan", "4", "--prune"] + small),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):

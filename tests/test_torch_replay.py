@@ -531,11 +531,11 @@ GRID_ARGS = ["--replay-grid", "3", "--trace", "bursty", "--jobs", "16",
              "--nodes", "16", "--pool", "extended", "--seed", "1"]
 
 
-def _table(text):
-    """The grid's table and winners, without the wall time."""
+def _table(text, first="replay grid:"):
+    """The grid's table and winners, from the line starting ``first``,
+    without the wall time."""
     lines = text.splitlines()
-    start = next(i for i, l in enumerate(lines) if l.startswith(
-        "replay grid:"))
+    start = next(i for i, l in enumerate(lines) if l.startswith(first))
     head = lines[start].rsplit(" in ", 1)[0]
     return [head] + lines[start + 1:]
 
@@ -556,16 +556,72 @@ def test_twin_loop_replay_grid_matches_reference(goal, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [(["--fan", "8"], "A7"),
-                                       (["--race"], "A7"),
+                                       (["--fan", "8", "--race"], "A7"),
                                        (["--shard", "2"], "A8"),
                                        (["--block-size", "4"], "A8"),
                                        (["--prefetch", "0"], "A8")])
-def test_twin_loop_refuses_unported_grid_modes(flag, item, capsys):
+def test_twin_loop_refuses_unported_grid_modes(flag, item, capsys,
+                                               monkeypatch):
+    """The fleet modes (A8) still refuse, naming their ROADMAP item.
+    The fan and raced grids (A7, ported) run on the CPU and print the
+    reference CLI's table line for line (``--backend reference``): the
+    S × F × P grid with its fan confidence line, or the race's rungs,
+    members, survivors and winners."""
+    if item == "A7":
+        tloop.main(GRID_ARGS + ["--device", "cpu"] + flag)
+        port = capsys.readouterr().out
+        monkeypatch.setattr(sys, "argv", ["twin_loop", "--no-compile-cache",
+                                          "--backend", "reference"]
+                            + GRID_ARGS + flag)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            jloop.main()
+        head = "raced grid:" if "--race" in flag else "replay grid:"
+        assert _table(port, head) == _table(buf.getvalue(), head)
+        assert head in port
+        return
     with pytest.raises(SystemExit) as exc:
         tloop.main(GRID_ARGS + ["--device", "cpu"] + flag)
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and f"({item})" in err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--fan", "8", "--prune"],
+    ["--fan", "8", "--prune", "--fan-fail", "0.3", "--objective",
+     "cvar:0.9:score"],
+    ["--fan", "6", "--fan-noise", "0.5", "--fan-burst", "0.3",
+     "--fan-seed", "4", "--objective", "p95:avg_wait"],
+    ["--fan", "16", "--race", "--race-f0", "4", "--fan-fail", "0.2"]],
+    ids=["prune", "prune_cvar_fail", "burst", "race_f0"])
+def test_twin_loop_fan_grid_modes_match_reference(flag, capsys,
+                                                   monkeypatch):
+    """``--prune`` and the other --fan*/--race* flags of the grid: the
+    reference CLI's table, line for line."""
+    tloop.main(GRID_ARGS + ["--device", "cpu"] + flag)
+    port = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["twin_loop", "--no-compile-cache",
+                                      "--backend", "reference"]
+                        + GRID_ARGS + flag)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jloop.main()
+    head = "raced grid:" if "--race" in flag else "replay grid:"
+    assert _table(port, head) == _table(buf.getvalue(), head)
+    if "--prune" in flag:
+        assert "prune: pre-pass" in port
+
+
+@pytest.mark.parametrize("flag", [["--prune"], ["--race"],
+                                  ["--race-f0", "4"],
+                                  ["--fan", "4", "--race", "--prune"],
+                                  ["--fan", "4", "--ensemble", "2"]])
+def test_twin_loop_fan_flag_combinations(flag, capsys):
+    """The reference's refusals of --fan/--race/--prune combinations."""
+    with pytest.raises(SystemExit) as exc:
+        tloop.main(GRID_ARGS + ["--device", "cpu"] + flag)
+    assert exc.value.code == 2
 
 
 @pytest.mark.parametrize("flag", [["--failures", "1"], ["--budget-s", "1"]])

@@ -15,7 +15,10 @@ Tolerances:
   * the sync handlers on one event stream: mirrors bitwise equal;
   * the emulator's static mode: identical start times, report rtol 1e-6.
 """
+import contextlib
 import dataclasses
+import io
+import sys
 
 import numpy as np
 import pytest
@@ -122,12 +125,43 @@ def test_twin_loop_main_runs_on_cpu(capsys):
     assert "policy mix:" in out and "cycle latency:" in out
 
 
+#: Modes of the reference CLI that the port runs (the other cases of
+#: ``test_twin_loop_rejects_unported_modes`` still refuse).
+_PORTED_MODES = (["--fan", "8"], ["--fan", "8", "--race"],
+                 ["--ensemble", "4"])
+
+
+def _cosim_table(text):
+    """A co-simulation's printed report without its first line (the
+    port's names the device) and its wall-time line."""
+    return [line for line in text.splitlines()[1:]
+            if not line.startswith("cycle latency:")]
+
+
 @pytest.mark.parametrize("flag", [["--replay-grid", "4", "--shard", "2"],
                                   ["--train", "2"],
-                                  ["--fan", "8"], ["--race"],
+                                  ["--fan", "8"], ["--fan", "8", "--race"],
                                   ["--ensemble", "4"], ["--chaos"],
                                   ["--snapshot-dir", "x"]])
-def test_twin_loop_rejects_unported_modes(flag, capsys):
+def test_twin_loop_rejects_unported_modes(flag, capsys, monkeypatch):
+    """The modes not ported yet refuse, naming their ROADMAP item; the
+    fan, race and ensemble modes run on the CPU and print the reference
+    CLI's report (``--backend reference``) line for line: the metric
+    table, the what-if breakdown, the policy mix, the fan confidence and
+    race lines, resilience and bus health."""
+    if flag in _PORTED_MODES:
+        tloop.main(ARGS + ["--device", "cpu"] + flag)
+        port = capsys.readouterr().out
+        monkeypatch.setattr(sys, "argv", ["twin_loop", "--no-compile-cache",
+                                          "--backend", "reference"]
+                            + ARGS + flag)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            jloop.main()
+        assert _cosim_table(port) == _cosim_table(buf.getvalue())
+        assert "fan confidence" in port
+        assert ("race:" in port) == ("--race" in flag)
+        return
     with pytest.raises(SystemExit) as exc:
         tloop.main(ARGS + ["--device", "cpu"] + flag)
     assert exc.value.code == 2
