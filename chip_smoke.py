@@ -100,7 +100,29 @@ Phases (each prints its own lines; any failure exits non-zero):
      (g) ``twin_loop --fan 8 --race``, ``--ensemble 4`` and
      ``--replay-grid 4 --fan 8 --prune`` print the same report on cuda
      and cpu.  Each path runs with K1's count set to 0 before it and
-     read after; a path that never launched K1 fails the phase.
+     read after; a path that never launched K1 fails the phase;
+ 14. learning, checkpoints, snapshots and chaos, K1 the pass of every
+     path: (a) ``prng.sin_f32`` (glibc's ``sinf``, the burst warp's)
+     on the card against the CPU over 2**20 + 2**17 arguments in ±1e5
+     rad and around 120 rad, and phase 13 (e)'s burst fan materialized
+     on cuda against cpu: bitwise; (b) ``learn.train`` at Polaris scale
+     (CEM over wfp, population 16, 3 generations, goal ``score``, on 4
+     training and 2 held-out traces of phase 12's family, J=1024: gen 0
+     evaluates 4 x 18 and 2 x 18 forks), checkpointed every generation
+     under ``build/``: per generation the wall, each grid's wall, K1
+     launches and host reads and the history line; gen 0's grid on one
+     scenario cuda bitwise ``reference``; four traced blocks of gen 0's
+     training grid, and K1 on the next pass (k=72) against its plain
+     version with its time and bound; a resume from the step-2 checkpoint alone bitwise
+     the uninterrupted run (θ, history, held-out cost); ``trained:<dir>,
+     paper`` deploying the in-memory θ's held-out costs bitwise; (c)
+     five ``SchedTwin(ensemble=8)`` Polaris cycles against two, a
+     snapshot, and three on a fresh twin restored from it: qrun sets,
+     winners, costs and the key bitwise, with save and restore walls
+     and bytes on disk; (d) ``twin_loop --chaos``, the same killed after
+     cycle 20 and resumed (its metric table, what-if breakdown and
+     policy mix those of the uninterrupted run), ``--train 2`` and
+     ``--pool trained:<dir>,paper``, on cuda and cpu: the same reports.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -537,11 +559,15 @@ def check_cosim(pe):
 
 
 # ---------------------------------------------------------------- phase 4
-def polaris_cycles(torch, engine, pe, tag="[polaris]", **twin_kw):
+def polaris_cycles(torch, engine, pe, tag="[polaris]", after_cycle=None,
+                   **twin_kw):
     """Five decision cycles through the normal entry point: events on the
     bus, ``SchedTwin.pump()`` (a twin built with ``twin_kw``, e.g.
     ``ensemble=8``).  The qrun callback stands in for the scheduler: it
-    publishes RUNJOB for every started job."""
+    publishes RUNJOB for every started job.  ``after_cycle(cycle, twin,
+    make)``, if given, may return the twin to go on with (``make()``
+    builds a fresh one on the same bus).  Returns K1's launches, the
+    mirrors, the cycle walls and the last twin."""
     from repro_torch.core.events import Event, EventKind
     pending = []
 
@@ -549,6 +575,12 @@ def polaris_cycles(torch, engine, pe, tag="[polaris]", **twin_kw):
         pending.extend(Event(EventKind.RUNJOB, t, j) for j in job_ids)
 
     bus, twin = make_twin(engine, on_qrun, **twin_kw)
+
+    def make():
+        from repro_torch.core.twin import SchedTwin
+        return SchedTwin(bus=bus, qrun=on_qrun, total_nodes=POLARIS_NODES,
+                         max_jobs=POLARIS_SLOTS, pool=DRAS_POOL,
+                         objective="score", engine=engine, **twin_kw)
     trace, events, n_run = polaris_backlog()
     for ev in events:
         bus.publish(ev)
@@ -585,6 +617,8 @@ def polaris_cycles(torch, engine, pe, tag="[polaris]", **twin_kw):
               + (f", {rec.fan_size} members" if rec.fan_size > 1 else ""))
         if not all(math.isfinite(c) for c in rec.costs.values()):
             raise SystemExit(f"{tag} cycle {cycle}: non-finite costs")
+        if after_cycle is not None:
+            twin = after_cycle(cycle, twin, make)
     launches = pe.LAUNCHES
     if launches == 0:
         raise SystemExit(f"{tag} the main path never launched K1")
@@ -596,7 +630,7 @@ def polaris_cycles(torch, engine, pe, tag="[polaris]", **twin_kw):
           f"J={POLARIS_SLOTS}, {forks}: wall mean "
           f"{statistics.mean(rows) * 1e3:.1f} ms, p50 "
           f"{statistics.median(rows) * 1e3:.1f} ms; K1 launches {launches}")
-    return launches, mirrors, rows
+    return launches, mirrors, rows, twin
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1936,7 +1970,7 @@ def monte_carlo_phase(torch, pe, snapshot, engine):
     prng_on_card(torch)
     fan = fan_decide_phase(torch, pe, snapshot, card)
     race = race_decide_phase(torch, pe, snapshot, card)
-    ens_launches, _, ens_walls = polaris_cycles(torch, engine, pe,
+    ens_launches, _, ens_walls, _ = polaris_cycles(torch, engine, pe,
                                                 tag="[ensemble]",
                                                 ensemble=ENSEMBLE)
     grid = fan_grid_phase(torch, pe, card)
@@ -1966,6 +2000,399 @@ def monte_carlo_phase(torch, pe, snapshot, engine):
             "fan_race_ensemble_cli": cli_launches},
         fan_pass=fan["k1"], fan_grid_pass=grid["k1"],
         ensemble_wall_mean_ms=statistics.mean(ens_walls) * 1e3)
+
+
+# --------------------------------------------------------------- phase 14
+TRAIN_CFG = dict(family="wfp", strategy="cem", population=16,
+                 generations=3, objective="score", seed=0, patience=0)
+TRAIN_SPLIT = (4, 2)         # training and held-out Polaris traces
+SNAP_AT = 2                  # (c): cycles before the snapshot
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+RESILIENCE_CLI = ["--trace", "poisson", "--jobs", "30", "--nodes", "16",
+                  "--seed", "3"]
+TRAIN_CLI = ["--train", "2", "--train-pop", "4", "--train-scenarios", "2",
+             "--train-heldout", "1", "--trace", "poisson", "--jobs", "24",
+             "--nodes", "16"]
+
+
+def sin_on_card(torch):
+    """(a) ``prng.sin_f32`` on the card against the CPU over 2**20 + 2**17
+    arguments spanning ±1e5 rad and the region around 120 rad (both
+    reductions), then phase 13 (e)'s burst fan materialized on ``cuda``
+    against the same fan materialized on ``cpu``."""
+    import numpy as np
+    from repro_torch.cluster.workload import stack_scenarios
+    from repro_torch.core import prng
+    from repro_torch.core.fan import FanSpec, materialize_fan
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(-1e5, 1e5, 1 << 20), rng.uniform(110.0, 130.0, 1 << 16),
+        -rng.uniform(110.0, 130.0, 1 << 16)]).astype(np.float32))
+    differ = int((prng.sin_f32(x.cuda()).cpu().view(torch.int32)
+                  != prng.sin_f32(x).view(torch.int32)).sum())
+    if differ:
+        raise SystemExit(f"[sin] {differ} of {x.numel()} sines on the card "
+                         f"differ from the CPU's")
+    traces, _ = polaris_traces()
+    scen = stack_scenarios(traces[:FAN_GRID_SCENARIOS], POLARIS_NODES,
+                           max_jobs=POLARIS_SLOTS)
+    spec = FanSpec(**FAN_GRID)
+    on_card = materialize_fan(scen, spec)
+    on_cpu = materialize_fan(scen, spec, device="cpu")
+    for f in ("submit_t", "nodes", "est_runtime", "true_runtime", "valid",
+              "total_nodes", "n_jobs"):
+        if not np.array_equal(getattr(on_card, f), getattr(on_cpu, f)):
+            raise SystemExit(f"[sin] the burst fan's {f} differs between "
+                             f"cuda and cpu")
+    print(f"[sin] glibc's sinf (prng.sin_f32) on {x.numel()} arguments in "
+          f"±1e5 rad and ±[110, 130] rad: the card bitwise the CPU (0 "
+          f"differ; tolerance: none); phase 13 (e)'s burst fan "
+          f"(S={FAN_GRID_SCENARIOS} x F={spec.n}, burst "
+          f"{spec.burst_amplitude}) materialized on cuda bitwise on cpu")
+
+
+def polaris_split():
+    """Phase 12's Polaris traces as the trainer's split: 4 training and 2
+    held-out days of a Polaris-class backlog, J=1024."""
+    import numpy as np
+    from repro_torch.cluster.workload import poisson_trace, split_scenarios
+    return split_scenarios(
+        np.random.default_rng(0),
+        lambda r: poisson_trace(REPLAY_JOBS, POLARIS_NODES, REPLAY_GAP,
+                                (1, 11), (300.0, 86400.0), rng=r,
+                                heavy_tail=True),
+        *TRAIN_SPLIT, POLARIS_NODES)
+
+
+def grid_blocks_traced(torch, pe, engine, scen, pool_spec, tag, what,
+                       at=20):
+    """Four blocks of a replay grid from block ``at`` under the profiler,
+    as phase 12 traces its grid, then K1 on the first pass of the block
+    after them against its plain version (``k1_on``).  Returns the
+    profile and K1's numbers."""
+    from repro_torch.core import des
+    from repro_torch.core.engine import make_order_fn, replay_inputs
+    S = int(scen.total_nodes.shape[0])
+    states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool_spec,
+                                                          "cuda")
+    plan = engine.plan(pool_spec)
+    order_fn = make_order_fn(states, pool_t,
+                             plan * S if plan is not None else None,
+                             torch.isfinite(arrival_t))
+    step = des.make_replay_step(arrival_t, true_rt, order_fn,
+                                engine.pass_fn())
+
+    def blocks(c, n):
+        for _ in range(n * des.REPLAY_BLOCK):
+            c = step(c)
+        return c
+    c = blocks(des.replay_init(states), at)
+    prof = traced(torch, lambda: bool(des.replay_cond(blocks(c, 4),
+                                                      arrival_t)),
+                  tag, what, "pass_kernel")
+    _, first = capture_first_pass(pe, lambda: blocks(blocks(c, 4), 1))
+    return prof, k1_on(torch, pe, first, tag)
+
+
+def training_phase(torch, pe, card):
+    """(b) The learner at Polaris scale (the slice's main path): CEM over
+    the wfp family, population 16, three generations on four training
+    and two held-out Polaris traces, checkpointed every generation; gen
+    0's grid on one scenario cuda bitwise reference; a resume from the
+    step-2 checkpoint bitwise the uninterrupted run; ``trained:<dir>``
+    deploying the same costs as the in-memory θ."""
+    import shutil
+    from repro_torch.checkpoint import step_dir
+    from repro_torch.cluster.workload import slice_scenarios
+    from repro_torch.core import des
+    from repro_torch.core.engine import DrainEngine
+    from repro_torch.core.policies import parse_pool, theta_pool
+    from repro_torch.learn import TrainConfig, family_space, train
+    from repro_torch.learn.trainer import _gen0_extras
+    import numpy as np
+    train_scen, heldout = polaris_split()
+    cfg = TrainConfig(**TRAIN_CFG)
+    cuda = DrainEngine("cuda", device="cuda")
+    ref = DrainEngine("reference", device="cuda")
+    space = family_space(cfg.family)
+    strat = cfg.make_strategy()
+    z = strat.ask(strat.init(np.asarray(space.x0, np.float32),
+                             np.asarray(space.sigma0, np.float32)))
+    names, extra = _gen0_extras(space, cfg)
+    gen0 = theta_pool(space.family,
+                      np.concatenate([space.decode(z), np.stack(extra)]),
+                      [f"cand{i}" for i in range(len(z))] + names)
+    S, H, P0 = TRAIN_SPLIT[0], TRAIN_SPLIT[1], len(gen0)
+    print(f"[train] {cfg.strategy}/{cfg.family}, population "
+          f"{cfg.population}, {cfg.generations} generations, goal "
+          f"{cfg.objective}: {S} training and {H} held-out Polaris traces "
+          f"({REPLAY_JOBS} jobs, {POLARIS_NODES} nodes, J="
+          f"{int(train_scen.submit_t.shape[1])}); gen 0 evaluates {S} x "
+          f"{P0} = {S * P0} training forks ({cfg.population} candidates, "
+          f"{', '.join(names)}) and {H} x {P0} held-out forks")
+
+    one = slice_scenarios(train_scen, 0, 1)
+    pe.LAUNCHES = 0
+    got = cuda.replay_grid(one, gen0.spec, cfg.objective)
+    got.costs.cpu()
+    one_launches = pe.LAUNCHES
+    t0 = time.perf_counter()
+    want = ref.replay_grid(one, gen0.spec, cfg.objective)
+    want.costs.cpu()
+    ref_s = time.perf_counter() - t0
+    for name in ("start_t", "end_t", "deadlocked", "events", "costs",
+                 "best"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise SystemExit(f"[train] gen 0's grid on scenario 0: cuda and "
+                             f"reference differ in {name}")
+    if pe.LAUNCHES != one_launches or one_launches == 0:
+        raise SystemExit("[train] K1 launched on the reference backend, or "
+                         "never on cuda")
+    print(f"[train] gen 0's grid on training scenario 0 ({P0} forks): cuda "
+          f"== reference on the card (start_t, end_t, deadlocked, events, "
+          f"costs, best; tolerance: none); K1 launches {one_launches}; "
+          f"reference backend {ref_s:.2f} s")
+
+    # per-grid launches and walls, through the default evaluator
+    grids = []
+    real = DrainEngine.generation_costs
+
+    def counted(self, *args, **kw):
+        before, t0 = pe.LAUNCHES, time.perf_counter()
+        out = real(self, *args, **kw)
+        out.cpu()
+        grids.append((pe.LAUNCHES - before, time.perf_counter() - t0))
+        return out
+    gens, mark = [], [time.perf_counter(), 0]
+
+    def log(msg):
+        if not msg.startswith("gen "):
+            return
+        now = time.perf_counter()
+        mine = grids[mark[1]:]
+        mark[1] = len(grids)
+        launches = sum(n for n, _ in mine)
+        reads = sum(-(-n // des.REPLAY_BLOCK) + 1 for n, _ in mine)
+        gens.append(launches)
+        print(f"[train] {msg.strip()}: {now - mark[0]:.2f} s, {len(mine)} "
+              f"grids ({', '.join(f'{w:.2f} s' for _, w in mine)}), K1 "
+              f"launches {launches} (= replay iterations), host reads "
+              f"{reads}")
+        mark[0] = now
+    full_dir = os.path.join(WORK, "train")
+    shutil.rmtree(full_dir, ignore_errors=True)
+    pe.LAUNCHES = 0
+    DrainEngine.generation_costs = counted
+    try:
+        t0 = time.perf_counter()
+        res = train(train_scen, heldout, cfg, engine=cuda,
+                    checkpoint_dir=full_dir, log_fn=log)
+        wall = time.perf_counter() - t0
+    finally:
+        DrainEngine.generation_costs = real
+    launches = pe.LAUNCHES
+    if launches == 0:
+        raise SystemExit("[train] training never launched K1")
+    if not math.isfinite(res.best_heldout):
+        raise SystemExit("[train] no finite held-out cost")
+    print(f"[train] {res.generations_run} generations in {wall:.2f} s on "
+          f"{card}: incumbent {res.best_desc} ({res.history[-1]['incumbent']}"
+          f"), held-out {res.best_heldout:.6g}, train {res.best_train:.6g}; "
+          f"K1 launches {launches}")
+    prof, k1 = grid_blocks_traced(
+        torch, pe, cuda, train_scen, gen0.spec, "[train]",
+        f"blocks 21-24 of gen 0's training grid ({S * P0} forks)")
+    busy = prof["busy_us"]
+    print(f"[train] gen 0's training grid, 4 traced blocks: device busy "
+          + (f"{100.0 * busy / prof['wall_us']:.1f}%" if busy is not None
+             else "not measured")
+          + f" of the traced wall, "
+          f"{prof['kernels'] / (4 * des.REPLAY_BLOCK):.1f} kernels per "
+          f"iteration")
+
+    part_dir = os.path.join(WORK, "train_resume")
+    shutil.rmtree(part_dir, ignore_errors=True)
+    shutil.copytree(step_dir(full_dir, 2), step_dir(part_dir, 2))
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    resumed = train(train_scen, heldout, cfg, engine=cuda,
+                    checkpoint_dir=part_dir, resume=True)
+    resume_s = time.perf_counter() - t0
+    resume_launches = pe.LAUNCHES
+    if not (np.array_equal(resumed.theta, res.theta)
+            and resumed.history == res.history
+            and resumed.best_heldout == res.best_heldout):
+        raise SystemExit("[train] the resumed run differs from the "
+                         "uninterrupted one")
+    if resume_launches == 0:
+        raise SystemExit("[train] the resumed generation never launched K1")
+    print(f"[train] resumed from the step-2 checkpoint alone: generation 3 "
+          f"in {resume_s:.2f} s, K1 launches {resume_launches}; θ, history "
+          f"and best_heldout bitwise the uninterrupted run's")
+
+    pe.LAUNCHES = 0
+    deployed = parse_pool(f"trained:{full_dir},paper")
+    via = cuda.replay_grid(heldout, deployed.spec, cfg.objective).costs
+    mem = cuda.replay_grid(heldout, res.pool.spec, cfg.objective).costs
+    deploy_launches = pe.LAUNCHES
+    if not torch.equal(via[:, 0], mem[:, 0]) or deploy_launches == 0:
+        raise SystemExit("[train] trained:<dir> deploys other costs than "
+                         "the in-memory θ")
+    print(f"[train] deploy parity: parse_pool('trained:<dir>,paper') = "
+          f"{list(deployed.names)}; its first column of held-out costs "
+          f"bitwise the in-memory θ's ({via[:, 0].tolist()}); K1 launches "
+          f"{deploy_launches}")
+    return dict(launches=launches, one_launches=one_launches,
+                resume_launches=resume_launches,
+                deploy_launches=deploy_launches, k1=k1)
+
+
+def snapshot_phase(torch, pe, engine, card):
+    """(c) Polaris snapshot and restore: five ``SchedTwin(ensemble=8)``
+    cycles uninterrupted, then two, a snapshot, and three more on a
+    fresh twin restored from it: the same qrun sets, winners, costs and
+    key."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager, step_dir
+    root = os.path.join(WORK, "snapshot")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(root)
+
+    def cycles(twin):
+        return [(c.policy, c.costs, c.started_jobs)
+                for c in twin.telemetry.cycles]
+    pe.LAUNCHES = 0
+    _, _, _, full = polaris_cycles(torch, engine, pe, tag="[snapshot]",
+                                   ensemble=ENSEMBLE)
+    times = {}
+
+    def cut(cycle, twin, make):
+        if cycle != SNAP_AT - 1:
+            return twin
+        t0 = time.perf_counter()
+        twin.snapshot(mgr)
+        times["save"] = time.perf_counter() - t0
+        fresh = make()
+        t0 = time.perf_counter()
+        step, _ = fresh.restore(mgr)
+        times["restore"] = time.perf_counter() - t0
+        times["step"] = step
+        return fresh
+    launches, _, _, resumed = polaris_cycles(
+        torch, engine, pe, tag="[snapshot]", after_cycle=cut,
+        ensemble=ENSEMBLE)
+    if launches == 0:
+        raise SystemExit("[snapshot] the restored run never launched K1")
+    if cycles(resumed) != cycles(full) or \
+            resumed._key.tolist() != full._key.tolist():
+        raise SystemExit("[snapshot] the restored twin's decisions differ "
+                         "from the uninterrupted run's")
+    d = step_dir(root, times["step"])
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"[snapshot] SchedTwin(ensemble={ENSEMBLE}) on the Polaris "
+          f"backlog, snapshot after cycle {SNAP_AT}, restored into a fresh "
+          f"twin for {POLARIS_CYCLES - SNAP_AT} more: qrun sets, winners, "
+          f"costs and the key bitwise the uninterrupted five cycles'; save "
+          f"{times['save'] * 1e3:.1f} ms, restore "
+          f"{times['restore'] * 1e3:.1f} ms, {size} bytes on disk "
+          f"(J={POLARIS_SLOTS}); K1 launches {launches} on {card}")
+    return dict(launches=launches, save_s=times["save"],
+                restore_s=times["restore"], bytes=size)
+
+
+def resilience_cli(device, argv, work):
+    """``twin_loop`` with ``argv``: its report without the device's name,
+    the wall-time lines and the working directory's name, and the
+    ``SystemExit`` message if it raised one."""
+    import contextlib
+    import io
+    from repro_torch.launch import twin_loop
+    buf, exit_msg = io.StringIO(), None
+    with contextlib.redirect_stdout(buf):
+        try:
+            twin_loop.main(argv + ["--device", device])
+        except SystemExit as e:
+            exit_msg = str(e).replace(work, "<dir>")
+    lines = [ln.replace(work, "<dir>")
+             for ln in buf.getvalue().splitlines()[1:]
+             if not ln.startswith(("cycle latency:", "trained "))]
+    return lines, exit_msg
+
+
+def cli_phase(torch, pe):
+    """(d) The new CLI modes on cuda and cpu, the same reports: a chaos
+    run killed after cycle 20 and resumed (== the uninterrupted chaos
+    run), then a small training run and its deployment."""
+    import shutil
+    runs = {}
+    launches = {}
+    for device in ("cuda", "cpu"):
+        work = os.path.join(WORK, f"cli_{device}")
+        shutil.rmtree(work, ignore_errors=True)
+        snap, tdir = os.path.join(work, "snap"), os.path.join(work, "pol")
+        steps = {
+            "chaos": RESILIENCE_CLI + ["--chaos"],
+            "kill": RESILIENCE_CLI + ["--chaos", "--snapshot-dir", snap,
+                                      "--kill-after-cycle", "20"],
+            "resume": RESILIENCE_CLI + ["--chaos", "--snapshot-dir", snap,
+                                        "--resume"],
+            "train": TRAIN_CLI + ["--train-dir", tdir],
+            "deploy": RESILIENCE_CLI + ["--pool", f"trained:{tdir},paper"],
+        }
+        for name, argv in steps.items():
+            pe.LAUNCHES = 0
+            runs[device, name] = resilience_cli(device, argv, work)
+            if device == "cuda":
+                launches[name] = pe.LAUNCHES
+    for name in ("chaos", "kill", "resume", "train", "deploy"):
+        if runs["cuda", name] != runs["cpu", name]:
+            raise SystemExit(f"[resilience-cli] {name}: cuda and cpu "
+                             f"reports differ")
+        if not launches[name]:
+            raise SystemExit(f"[resilience-cli] {name} never launched K1")
+    if not (runs["cuda", "kill"][1] or "").startswith(
+            "killed after cycle 20"):
+        raise SystemExit(f"[resilience-cli] --kill-after-cycle 20 ended "
+                         f"with {runs['cuda', 'kill'][1]!r}")
+    full, resumed = runs["cuda", "chaos"][0], runs["cuda", "resume"][0]
+    # the chaos bus keys its read failures on the process's read calls,
+    # which restart with the resumed process (as in the reference), so
+    # its read retries and injection counts are left out
+    keep = lambda lines: [ln for ln in lines if not ln.startswith(  # noqa
+        ("resumed", "bus health", "resilience:"))]
+    if keep(resumed) != keep(full) or not any(
+            ln.startswith("resumed from snapshot step 20") for ln in resumed):
+        raise SystemExit("[resilience-cli] the resumed chaos run differs "
+                         "from the uninterrupted one")
+    print(f"[resilience-cli] twin_loop --chaos (poisson, 30 jobs, 16 nodes): "
+          f"killed after cycle 20 and resumed, the metric table, what-if "
+          f"breakdown and policy mix equal the uninterrupted run's; "
+          f"--train 2 --train-pop 4 --train-dir and --pool trained:<dir>,"
+          f"paper: cuda and cpu print the same reports (every step); K1 "
+          f"launches on cuda {launches}")
+    for line in runs["cuda", "train"][0]:
+        if line.startswith(("gen ", "    trained[")):
+            print(f"[resilience-cli]   {line.strip()}")
+    return launches
+
+
+def learning_phase(torch, pe, engine):
+    """Phase 14: learning, checkpoints, snapshots and chaos on the card,
+    K1 the pass of every path."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    sin_on_card(torch)
+    tr = training_phase(torch, pe, card)
+    snap = snapshot_phase(torch, pe, engine, card)
+    cli = cli_phase(torch, pe)
+    print(f"[learning] phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return dict(training_pass=tr["k1"], launches_by_path={
+        "polaris_training": tr["launches"],
+        "training_gen0_scenario0": tr["one_launches"],
+        "training_resume": tr["resume_launches"],
+        "trained_deploy": tr["deploy_launches"],
+        "snapshot_restore_cycles": snap["launches"],
+        **{f"cli_{k}": v for k, v in cli.items()}})
 
 
 # ------------------------------------------------- on request: --parent
@@ -2298,7 +2725,7 @@ def main() -> int:
     snapshot = polaris_snapshot(engine)
     k1, drain_inputs = kernel_vs_plain(torch, engine, snapshot)
     check_cosim(pe)
-    launches, mirrors, _ = polaris_cycles(torch, engine, pe)
+    launches, mirrors, _, _ = polaris_cycles(torch, engine, pe)
     profile_cycle(torch, engine, snapshot)
     k1s_launches, k1s = check_k1_shared(torch, snapshot, mirrors)
     report_k4_plan(logs)
@@ -2316,6 +2743,7 @@ def main() -> int:
                          max_new=8, min_longest=2048)
     replay = replay_phase(torch, pe, snapshot)
     mc = monte_carlo_phase(torch, pe, snapshot, engine)
+    learn = learning_phase(torch, pe, engine)
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)
@@ -2331,14 +2759,17 @@ def main() -> int:
     print(card_line())
     print(json.dumps({"kernels": [
         dict(K1, launches=launches + replay["launches"]
-             + sum(mc["launches_by_path"].values()), **k1,
+             + sum(mc["launches_by_path"].values())
+             + sum(learn["launches_by_path"].values()), **k1,
              library_ms=None,
              launches_by_path={"polaris_cycles": launches,
                                "polaris_replay_grid": replay["launches"],
-                               **mc["launches_by_path"]},
+                               **mc["launches_by_path"],
+                               **learn["launches_by_path"]},
              replay_mean_us=replay["k1_mean_us"],
              replay_pass=replay["k1_pass"], fan_pass=mc["fan_pass"],
-             fan_grid_pass=mc["fan_grid_pass"]),
+             fan_grid_pass=mc["fan_grid_pass"],
+             training_pass=learn["training_pass"]),
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg], **k2),
         dict(K3, launches=rwkv[wk], **k3),

@@ -18,6 +18,10 @@ completions happen at the true runtime (§3.2).  Job fields are quantized
 to f32 at ingestion and end times are rounded to f32 in f64 host
 arithmetic, exactly as the reference does, so both packages see the same
 event times, and the host loop and the device replay agree bitwise.
+
+``snapshot_state``/``restore_state`` carry the ground truth and the
+event heap through JSON, so ``run`` continues from where a snapshot cut
+(``twin_loop --snapshot-dir/--resume``); the format is the reference's.
 """
 from __future__ import annotations
 
@@ -220,6 +224,57 @@ class ClusterEmulator:
             "free_nodes": int(self.free_nodes),
             "total_nodes": int(self.capacity_nodes),
         }
+
+    # -- crash-safe co-simulation resume (DESIGN.md §12) ----------------
+    def snapshot_state(self) -> Dict:
+        """JSON-serializable ground-truth snapshot: job arrays, event
+        heap, stale-end guards, and capacity log — everything ``run``
+        needs to continue mid-trace after a process restart (used by
+        ``twin_loop --snapshot-dir/--resume``)."""
+        return {
+            "submit_t": self.submit_t.tolist(),
+            "nodes": self.nodes.tolist(),
+            "est": self.est.tolist(),
+            "true_rt": self.true_rt.tolist(),
+            "start_t": self.start_t.tolist(),
+            "end_t": self.end_t.tolist(),
+            "state": self.state.tolist(),
+            "remaining": self.remaining.tolist(),
+            "now": float(self.now),
+            "n_events": int(self.n_events),
+            "n_restarts": int(self.n_restarts),
+            "free_nodes": int(self.free_nodes),
+            "capacity_nodes": int(self.capacity_nodes),
+            "heap": [list(item) for item in self._heap],
+            "seq": int(self._seq),
+            "end_seq": self._end_seq.tolist(),
+            "capacity_log": [list(item) for item in self._capacity_log],
+        }
+
+    def restore_state(self, d: Dict) -> None:
+        """Inverse of ``snapshot_state`` on an emulator built with the
+        same trace/failures; ``run`` then resumes the event loop from
+        exactly where the snapshot cut."""
+        self.submit_t[:] = np.asarray(d["submit_t"], dtype=np.float64)
+        self.nodes[:] = np.asarray(d["nodes"], dtype=np.int64)
+        self.est[:] = np.asarray(d["est"], dtype=np.float64)
+        self.true_rt[:] = np.asarray(d["true_rt"], dtype=np.float64)
+        self.start_t[:] = np.asarray(d["start_t"], dtype=np.float64)
+        self.end_t[:] = np.asarray(d["end_t"], dtype=np.float64)
+        self.state[:] = np.asarray(d["state"], dtype=np.int64)
+        self.remaining[:] = np.asarray(d["remaining"], dtype=np.float64)
+        self.now = float(d["now"])
+        self.n_events = int(d["n_events"])
+        self.n_restarts = int(d["n_restarts"])
+        self.free_nodes = int(d["free_nodes"])
+        self.capacity_nodes = int(d["capacity_nodes"])
+        self._heap = [(float(t), int(s), int(k), int(i))
+                      for t, s, k, i in d["heap"]]
+        heapq.heapify(self._heap)
+        self._seq = int(d["seq"])
+        self._end_seq[:] = np.asarray(d["end_seq"], dtype=np.int64)
+        self._capacity_log = [(float(t), int(c))
+                              for t, c in d["capacity_log"]]
 
     def _static_schedule(self, policy) -> None:
         started = self.engine.schedule_pass_starts(

@@ -36,10 +36,8 @@ index-guarded first-order dominance bound proves the goal never selects,
 and replays only the remaining member suffix over the kept sub-pool.
 
 The f32 arithmetic follows the reference's: ``exp`` is ``prng.exp_f32``
-(XLA's, bitwise) and the multiply-adds XLA fuses are fused here too.
-``sin`` (the burst warp) is torch's f64 sine rounded to f32, which can
-sit an ulp from XLA's; burst fans are therefore held to the reference by
-their winners (``tests/test_torch_fan.py``).
+and the burst warp's ``sin`` is ``prng.sin_f32`` (XLA's, bitwise), and
+the multiply-adds XLA fuses are fused here too.
 """
 from __future__ import annotations
 
@@ -210,10 +208,6 @@ def failure_downs(spec: FanSpec, s: torch.Tensor, phi: torch.Tensor,
     return down.to(tot.dtype)
 
 
-def _sin(x: torch.Tensor) -> torch.Tensor:
-    return torch.sin(x.double()).float()
-
-
 def perturb_rows(submit, nodes, est, true_rt, valid, totals,
                  spec: FanSpec, s: torch.Tensor, phi: torch.Tensor,
                  inert: torch.Tensor):
@@ -236,7 +230,8 @@ def perturb_rows(submit, nodes, est, true_rt, valid, totals,
             omega = 2.0 * np.pi / spec.burst_period
             amp = spec.burst_amplitude / omega
             arg = prng._fma(sub, omega, phase[:, None])
-            warped = prng._fma(_sin(arg) - _sin(phase)[:, None], amp, sub)
+            warped = prng._fma(prng.sin_f32(arg) - prng.sin_f32(phase)[:, None],
+                               amp, sub)
             # monotone in exact arithmetic (derivative >= 1 - A > 0);
             # cummax irons out any f32 rounding inversion so the arrival
             # cursor stays valid
@@ -279,7 +274,7 @@ def perturb_window(submit, nodes, est, true_rt, valid, totals,
 # Host materialization: the bitwise oracle, never on the main path.
 # ----------------------------------------------------------------------
 
-def materialize_fan(scenarios, spec: FanSpec, device="cpu"):
+def materialize_fan(scenarios, spec: FanSpec, device="cuda"):
     """The fan as a plain host ``ScenarioSet`` of S·F pseudo-scenarios
     (row ``s·F + φ`` = member φ of scenario s) with the same
     perturbations, derived on ``device`` and copied back:

@@ -52,6 +52,10 @@ EXTENDED_POOL: Sequence[int] = (WFP, FCFS, SJF, SAF, LJF, LXF, EXPF)
 _EST_FLOOR = 1.0  # seconds; guards division by tiny estimates
 
 
+def policy_name(policy_id: int) -> str:
+    return POLICY_NAMES[int(policy_id)]
+
+
 def _wait_est_nodes(jobs: JobTable, now: torch.Tensor):
     now = torch.as_tensor(now, dtype=torch.float32,
                           device=jobs.submit_t.device)
@@ -291,6 +295,14 @@ def stack_specs(specs: Sequence[PolicySpec]) -> PolicySpec:
                       theta=torch.stack([s.theta for s in specs]))
 
 
+def spec_rows(pool: PolicySpec) -> List[PolicySpec]:
+    """The scalar per-fork specs of a stacked pool (host-side)."""
+    fam = pool.family.cpu()
+    th = pool.theta.cpu()
+    return [PolicySpec(fam[i].clone(), th[i].clone())
+            for i in range(fam.shape[0])]
+
+
 def describe_spec(family: int, theta) -> str:
     """Human-readable name for one fork: canonical static names where
     θ sits exactly on a fixed point, else ``family[k=v,...]``."""
@@ -364,6 +376,28 @@ class PolicyPool:
         return cls(spec=pool, names=tuple(names))
 
 
+def theta_pool(family: int, thetas,
+               names: Sequence[str] | None = None) -> PolicyPool:
+    """(N, N_THETA) θ rows of one family as a PolicyPool on the fork axis:
+    how the trainer evaluates a generation as one grid, and how a
+    checkpointed θ deploys."""
+    th = np.asarray(thetas.cpu() if isinstance(thetas, torch.Tensor)
+                    else thetas, np.float32)
+    if th.ndim == 1:
+        th = th[None, :]
+    if th.ndim != 2 or th.shape[1] != N_THETA:
+        raise ValueError(f"thetas must be (N, {N_THETA}), got {th.shape}")
+    if int(family) not in FAMILY_NAMES:
+        raise ValueError(f"unknown family {family}; have {FAMILY_NAMES}")
+    spec = PolicySpec(torch.full((th.shape[0],), int(family),
+                                 dtype=torch.int32),
+                      torch.from_numpy(th.copy()))
+    if names is None:
+        names = [describe_spec(int(family), th[i])
+                 for i in range(th.shape[0])]
+    return PolicyPool(spec=spec, names=tuple(names))
+
+
 _STATIC_BY_NAME = {POLICY_NAMES[i].lower(): i for i in EXTENDED_POOL}
 _FAMILY_BY_NAME = {v: k for k, v in FAMILY_NAMES.items()}
 
@@ -387,17 +421,26 @@ def parse_pool(grammar: str) -> PolicyPool:
     """Expand a pool grammar into a PolicyPool — one fork per grid point
     (same grammar as the reference: ``paper``, ``extended``, static
     names, ``wfp:a=1..5x5:tau=600..7200x5``, ``expf:tau=600``,
-    ``lin:est=1:wait=-0.01``).  ``trained:<ckpt>`` is not ported yet.
-    Term order is tie-break priority."""
+    ``lin:est=1:wait=-0.01``, ``trained:<ckpt-dir>``: the θ a
+    ``learn.train`` checkpoint holds).  Term order is tie-break
+    priority."""
     specs: List[PolicySpec] = []
     names: List[str] = []
     for term in (t.strip() for t in grammar.split(",")):
         if not term:
             continue
         if term.lower().startswith("trained:"):
-            raise NotImplementedError(
-                "trained:<ckpt> pools are not yet ported to repro_torch "
-                "(ROADMAP A9)")
+            # the rest of the term is a path: keep it out of the split
+            path = term[len("trained:"):].strip()
+            if not path:
+                raise ValueError(
+                    "trained: needs a checkpoint dir, e.g. "
+                    "trained:checkpoints/policy")
+            from repro_torch.learn.trainer import load_trained_pool
+            trained = load_trained_pool(path)
+            specs.extend(spec_rows(trained.spec))
+            names.extend(trained.names)
+            continue
         head, *assigns = term.split(":")
         name = head.strip().lower()
         if not assigns:

@@ -26,7 +26,9 @@ differs from it in most draws.  Its logarithm and square root, and the
 XLA evaluates them in f32 on the CPU (``log_f32``, ``log1p_f32``,
 ``exp_f32``, ``sqrt_f32``): Cephes polynomials with fused multiply-adds
 and a correctly rounded root, built only from IEEE-exact operations, so
-they give the same bits on every torch device.
+they give the same bits on every torch device.  XLA's f32 ``sin`` on the
+CPU is glibc's ``sinf`` (its x86-64 FMA build); ``sin_f32`` carries that
+one, with the f64 fused multiply-adds emulated exactly.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from repro_torch.device import DeviceLike
 
 __all__ = ["PRNGKey", "fold_in", "split", "threefry_2x32", "bits",
            "uniform", "normal", "erf_inv", "log_f32", "log1p_f32",
-           "exp_f32", "sqrt_f32", "normal_over_sqrt2"]
+           "exp_f32", "sqrt_f32", "sin_f32", "normal_over_sqrt2",
+           "key_words"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -78,6 +81,13 @@ def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
     builds it with 64-bit types off: ``[0, seed mod 2**32]``."""
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
                         device=device)
+
+
+def key_words(key: torch.Tensor) -> np.ndarray:
+    """A key's words as the host uint32 array the JAX package holds (and
+    checkpoints) for it; ``CheckpointManager.restore`` turns them back
+    into an int64 key."""
+    return key.detach().cpu().numpy().astype(np.uint32)
 
 
 def _data(data: IntLike, like: torch.Tensor) -> torch.Tensor:
@@ -249,6 +259,127 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     z = 1.0 + _fma(z, a * a, a)
     pow2 = ((n.to(torch.int32) + 0x7F) << 23).view(torch.float32)
     return z * pow2
+
+
+# ----------------------------------------------------------------------
+# glibc's sinf (sysdeps/ieee754/flt-32/s_sinf.c, sincosf.h), which XLA
+# calls for an f32 sin on the CPU: the argument goes to f64, is reduced
+# to [-pi/4, pi/4] (one multiply-subtract below 120, the 4/pi bit table
+# above), and a sine or cosine polynomial is evaluated in f64 and rounded
+# once to f32.  The x86-64 build glibc picks on an FMA host fuses each
+# ``a + b*c``; ``_fma64`` fuses them too, exactly, from IEEE-exact f64
+# operations (Dekker's product, Knuth's sum and Boldo-Melquiond's
+# rounding to odd).
+# ----------------------------------------------------------------------
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _veltkamp(a: torch.Tensor):
+    c = a * 134217729.0                           # 2**27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    p = a * b
+    ah, al = _veltkamp(a)
+    bh, bl = _veltkamp(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _add_round_odd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` rounded to odd: an inexact sum takes whichever f64
+    neighbour of the exact value has an odd last bit."""
+    s, e = _two_sum(a, b)
+    sb = s.view(torch.int64)
+    step = torch.where((s < 0) == (e < 0), 1, -1)
+    fix = (e != 0) & ((sb & 1) == 0)
+    return torch.where(fix, (sb + step).view(torch.float64), s)
+
+
+def _fma64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` in f64 rounded once (Boldo and Melquiond, 2008):
+    the exact product and sum as pairs, their low parts added with
+    rounding to odd, then one rounding to nearest."""
+    b = torch.as_tensor(b, dtype=torch.float64, device=a.device)
+    c = torch.as_tensor(c, dtype=torch.float64, device=a.device)
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    return th + _add_round_odd(tl, ul)
+
+
+_HPI_INV_2P24 = float.fromhex("0x1.45F306DC9C883p+23")      # 2/pi * 2**24
+_HPI = float.fromhex("0x1.921FB54442D18p0")                  # pi/2
+_PI63 = float.fromhex("0x1.921FB54442D18p-62")               # 2pi * 2**-64
+_SIN_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+_SIN_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+# 4/pi to 192 bits; entry i holds bits [8i - 24, 8i + 8) of it
+_INV_PIO4 = (0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44,
+             0x6e4e4415, 0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757,
+             0xfc2757d1, 0x2757d1f5, 0x57d1f534, 0xd1f534dd, 0xf534ddc0,
+             0x34ddc0db, 0xddc0db62, 0xc0db6295, 0xdb629599, 0x6295993c,
+             0x95993c43, 0x993c4390, 0x3c439041)
+
+
+def _reduce_large(yi: torch.Tensor):
+    """glibc's ``reduce_large``: |y| (f32 bits ``yi`` as int64) mod pi/2
+    from a 32 x 96-bit product with the 4/pi table, in 2.62 fixed point.
+    The 64-bit words are kept as (hi, lo) 32-bit halves in int64.
+    Returns the reduced f64 and the quadrant."""
+    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=yi.device)
+    i = (yi >> 26) & 15
+    m = ((yi & 0xFFFFFF) | 0x800000) << ((yi >> 23) & 7)      # < 2**31
+    r0 = (m * tab[i]) & _MASK                   # the low word of res0
+    r1 = m * tab[i + 4]
+    lo = (m * tab[i + 8]) >> 32
+    lo = lo + (r1 & _MASK)
+    hi = (r0 + (r1 >> 32) + (lo >> 32)) & _MASK
+    lo = lo & _MASK
+    n = ((hi + (1 << 29)) & _MASK) >> 30        # (res0 + 2**61) >> 62
+    hi = (hi - (n << 30)) & _MASK
+    hi = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)
+    return (hi * (1 << 32) + lo).double() * _PI63, n
+
+
+def sin_f32(y: torch.Tensor) -> torch.Tensor:
+    """``sin`` of f32 ``y`` as glibc's ``sinf`` (FMA build) computes it,
+    bit for bit: the value XLA's f32 ``sin`` takes on the CPU."""
+    yi = y.view(torch.int32).to(torch.int64) & _MASK
+    top = (yi >> 20) & 0x7FF                    # glibc's abstop12
+    x = y.double()
+    # below 120: one multiply-subtract by pi/2 (2/pi prescaled by 2**24)
+    n_fast = ((x * _HPI_INV_2P24).to(torch.int64) + 0x800000) >> 24
+    r_fast = _fma64(-n_fast.double(), _HPI, x)
+    r_large, n_large = _reduce_large(yi)
+    small = top < 0x3F4                         # |y| < 0.75: no reduction
+    fast = top < 0x42F                          # |y| < 120
+    n = torch.where(small, 0, torch.where(fast, n_fast, n_large))
+    # the sign's quadrant; the large reduction ran on |y|
+    q = torch.where(fast, n, n_large + (yi >> 31))
+    r = torch.where(small, x, torch.where(fast, r_fast, r_large))
+    neg = ((q & 3) == 1) | ((q & 3) == 2)
+    xs = torch.where(neg & ~small, -r, r)
+    x2 = r * r
+    # sine polynomial for even n, cosine (negated where q & 2) for odd
+    x3 = xs * x2
+    s = _fma64(x3 * x2, _fma64(x2, _SIN_S[2], _SIN_S[1]),
+               _fma64(x3, _SIN_S[0], xs))
+    cs = torch.where((q & 2) != 0, -1.0, 1.0).double()
+    c0, c1, c2, c3, c4 = (cs * v for v in _SIN_C)
+    x4 = x2 * x2
+    c = _fma64(x4 * x2, _fma64(x2, c4, c3),
+               _fma64(x4, c2, _fma64(x2, c1, c0)))
+    out = torch.where((n & 1) == 1, c, s).float()
+    out = torch.where(top < 0x398, y, out)      # |y| < 2**-12: y itself
+    return torch.where(top < 0x7F8, out, y - y)
 
 
 # XLA's single-precision erf_inv (Giles 2010), branch w < 5 then w >= 5.

@@ -16,14 +16,16 @@ resyncs), the deadline-guard ladder and the Monte-Carlo decision modes
 (``ensemble``, ``fan``, ``race``, with their level-1 shrink) are as in
 the reference.  The ensemble's key chain is the reference's threefry
 (``prng``): the twin splits its key before every ensemble decision, so a
-co-simulation draws the same members.  Not ported yet: crash-safe
-``snapshot``/``restore`` (A9).
+co-simulation draws the same members.  ``snapshot``/``restore`` make the
+twin crash-safe through ``checkpoint.CheckpointManager`` on the
+reference's format: a twin of either package restores the other's
+snapshot and makes the uninterrupted run's remaining decisions.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +44,21 @@ from repro_torch.core.race import RaceSpec, normalize_race
 from repro_torch.core.scoring import ScoreWeights
 from repro_torch.core.state import QUEUED, SimState, empty_state
 from repro_torch.device import DeviceLike
+
+
+def _jsonable(x):
+    """Snapshot extras with numpy and torch scalars turned into Python
+    ones (``.item()`` round-trips f32 exactly)."""
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, (bool, int, float, str)) or x is None:
+        return x
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    arr = np.asarray(x)
+    return arr.item() if arr.ndim == 0 else arr.tolist()
 
 
 def _fork_pool(pool: PolicyPool, p: int) -> PolicyPool:
@@ -365,3 +382,78 @@ class SchedTwin:
                                  int(self.state.total_nodes), device="cpu")
         for ev in self.bus.replay():
             self.state, _ = sync.apply_event(self.state, ev)
+
+    # -- crash-safe snapshots (DESIGN.md §12) ---------------------------
+    def snapshot(self, manager, step: Optional[int] = None,
+                 app_extra: Optional[Dict] = None) -> str:
+        """Serialize the decision-relevant twin runtime through
+        ``checkpoint.CheckpointManager``: the SimState mirror and the
+        PRNG key (as uint32 words) in the array tree; the consumer
+        offset, SeqTracker, guard ladder, incumbent, dead letters and
+        telemetry in the JSON ``extra``.  A twin built with the same
+        configuration and ``restore``d from it makes the uninterrupted
+        run's remaining decisions, bitwise.  ``step`` defaults to the
+        number of recorded cycles; ``app_extra`` rides in the same
+        manifest (``twin_loop`` puts the emulator and the bus there)."""
+        step = len(self.telemetry.cycles) if step is None else int(step)
+        tm = self.telemetry
+        extra = {
+            "consumer_offset": int(
+                self.bus.snapshot_offsets().get(self.CONSUMER, 0)),
+            "tracker": self._tracker.to_dict(),
+            "guard": (self.guard.to_dict()
+                      if self.guard is not None else None),
+            "incumbent": (list(self._incumbent)
+                          if self._incumbent is not None else None),
+            "dead_letters": [[dl.event.to_dict(), dl.reason]
+                             for dl in self.dead_letters],
+            "telemetry": {
+                "cycles": [dataclasses.asdict(c) for c in tm.cycles],
+                "job_start_policy": {str(k): v for k, v in
+                                     tm.job_start_policy.items()},
+                "runtime_residuals": [[e, a] for e, a
+                                      in tm.runtime_residuals],
+                "ingest": tm.ingest.as_dict(),
+            },
+        }
+        if app_extra is not None:
+            extra["app"] = app_extra
+        tree = {"state": self.state, "key": prng.key_words(self._key)}
+        return manager.save(step, tree, _jsonable(extra))
+
+    def restore(self, manager,
+                step: Optional[int] = None) -> Tuple[int, Optional[Dict]]:
+        """Inverse of ``snapshot``, on a twin built with the same
+        configuration (pool, objective, fan, race, guard and engine are
+        code, not payload).  Rewinds the bus consumer offset, so the next
+        ``pump()`` resumes where the snapshot cut.  Returns
+        ``(step_restored, app_extra_or_None)``."""
+        step = manager.latest_step() if step is None else int(step)
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint to restore under {manager.root!r}")
+        target = {"state": self.state, "key": self._key}
+        tree, extra = manager.restore(step, target, device="cpu")
+        self.state = tree["state"]
+        self._key = tree["key"]
+        self.bus.restore_offsets(
+            {self.CONSUMER: int(extra["consumer_offset"])})
+        self._tracker = SeqTracker.from_dict(extra["tracker"])
+        if self.guard is not None:
+            self.guard.restore(extra.get("guard"))
+        inc = extra.get("incumbent")
+        self._incumbent = (inc[0], int(inc[1])) if inc else None
+        self.dead_letters = [
+            DeadLetter(Event.from_dict(e), r)
+            for e, r in extra.get("dead_letters", [])]
+        tmd = extra.get("telemetry", {})
+        tm = telemetry.Telemetry()
+        tm.cycles = [telemetry.CycleRecord(**c)
+                     for c in tmd.get("cycles", [])]
+        tm.job_start_policy = {int(k): v for k, v in
+                               tmd.get("job_start_policy", {}).items()}
+        tm.runtime_residuals = [(float(e), float(a)) for e, a in
+                                tmd.get("runtime_residuals", [])]
+        tm.ingest = telemetry.IngestStats(**tmd.get("ingest", {}))
+        self.telemetry = tm
+        return step, extra.get("app")

@@ -14,6 +14,13 @@
     python -m repro_torch.launch.twin_loop --ensemble 8
     python -m repro_torch.launch.twin_loop --replay-grid 8 --fan 128 \\
         --fan-fail 0.2 --objective "cvar:0.9:score" --prune
+    python -m repro_torch.launch.twin_loop --chaos \\
+        --snapshot-dir snap --kill-after-cycle 20   # crash mid-run ...
+    python -m repro_torch.launch.twin_loop --chaos \\
+        --snapshot-dir snap --resume                # ... and resume it
+    python -m repro_torch.launch.twin_loop --train 24 --train-family lin \\
+        --train-dir ckpt/policy       # learn θ (DESIGN.md §13) ...
+    python -m repro_torch.launch.twin_loop --pool trained:ckpt/policy,paper
 
 Port of ``repro.launch.twin_loop``: same flags, same trace generators
 and the same printed report.  ``--replay-grid S`` skips the
@@ -27,24 +34,36 @@ futures (``--fan-noise``, ``--fan-burst``, ``--fan-fail``, keyed by
 dominated policies after a low-F pre-pass.  ``--race`` races the fan by
 successive halving up to F_max = ``--fan`` (``--race-f0``,
 ``--budget-ms``, ``--race-members``); ``--ensemble N`` decides over N
-estimate-noise members.  ``--device`` (default ``cuda``) picks where the
-engine runs; ``--backend auto`` takes the CUDA kernel on ``cuda`` and
-the plain pass on ``cpu``.  Training, chaos, snapshots and the sharded
-or block-streamed grid are not ported yet and are rejected.
+estimate-noise members.  ``--chaos`` reads the bus through
+``cluster.chaos.ChaosBus`` (drops, duplicates, reordering, corruption,
+read failures); ``--snapshot-dir`` persists crash-safe twin snapshots
+(every ``--snapshot-every`` cycles and at the end), ``--kill-after-cycle
+K`` snapshots and exits after cycle K, and ``--resume`` continues from
+the latest snapshot with the same flags.  ``--train G`` runs the policy
+learner (``repro_torch.learn``) for G generations on a deterministic
+scenario split instead of the co-simulation, checkpoints to
+``--train-dir`` and scores the incumbent against ``--pool`` on the
+held-out scenarios; ``--pool trained:<dir>`` deploys it.  ``--device``
+(default ``cuda``) picks where the engine runs; ``--backend auto`` takes
+the CUDA kernel on ``cuda`` and the plain pass on ``cpu``.  The sharded
+or block-streamed grid is not ported yet and is rejected.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.cluster.chaos import DEFAULT_PROFILE, ChaosBus
 from repro_torch.cluster.emulator import (ClusterEmulator, FailureSpec,
                                           RunReport)
 from repro_torch.cluster.workload import (JobSpec, bursty_trace,
                                           paper_synthetic_trace,
-                                          poisson_trace)
+                                          poisson_trace, split_scenarios)
 from repro_torch.configs.schedtwin import ReplayGridConfig
 from repro_torch.core.engine import PASS_BACKENDS, DrainEngine
 from repro_torch.core.events import EventBus
@@ -56,9 +75,7 @@ from repro_torch.core.twin import SchedTwin
 
 #: Flags of the reference CLI whose modes are not ported yet, with the
 #: ROADMAP item that brings each.
-_UNPORTED = {"train": "--train (A9)",
-             "chaos": "--chaos (A9)", "snapshot_dir": "--snapshot-dir (A9)",
-             "shard": "--shard (A8)", "block_size": "--block-size (A8)",
+_UNPORTED = {"shard": "--shard (A8)", "block_size": "--block-size (A8)",
              "prefetch": "--prefetch (A8)"}
 
 
@@ -110,6 +127,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--budget-s", type=float, default=0.0, metavar="S",
                     help="wall-clock budget per decision cycle "
                          "(guard.DeadlineGuard)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="read the bus through cluster.chaos.ChaosBus "
+                         "with the default fault profile (drops, dups, "
+                         "reordering, corruption, transient read "
+                         "failures)")
+    ap.add_argument("--snapshot-dir", default="", metavar="DIR",
+                    help="persist crash-safe twin snapshots (SimState, "
+                         "consumer offset, PRNG key, telemetry, "
+                         "emulator and bus state) under DIR")
+    ap.add_argument("--snapshot-every", type=int, default=25, metavar="N",
+                    help="snapshot every N decision cycles (with "
+                         "--snapshot-dir; default 25)")
+    ap.add_argument("--kill-after-cycle", type=int, default=0, metavar="K",
+                    help="simulate a crash: snapshot and exit after "
+                         "decision cycle K (requires --snapshot-dir); "
+                         "rerun with --resume to continue")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the co-simulation from the latest "
+                         "snapshot in --snapshot-dir (same flags as the "
+                         "original run), or --train from --train-dir")
     ap.add_argument("--backend", choices=sorted(PASS_BACKENDS) + ["auto"],
                     default="auto",
                     help="scheduling-pass backend (auto: the CUDA kernel "
@@ -121,15 +158,35 @@ def build_parser() -> argparse.ArgumentParser:
                     help="evaluate an S-scenario x pool baseline grid in "
                          "one batched replay instead of running the twin "
                          "co-simulation")
+    ap.add_argument("--train", type=int, default=0, metavar="G",
+                    help="train θ for G generations (repro_torch.learn) "
+                         "instead of running the twin: each generation "
+                         "is one batched replay grid with the candidate "
+                         "population on the fork axis")
+    ap.add_argument("--train-family", choices=("lin", "wfp", "expf"),
+                    default="lin",
+                    help="policy family whose θ is searched")
+    ap.add_argument("--train-strategy", choices=("cem", "es"),
+                    default="cem",
+                    help="search strategy: cross-entropy (cem) or "
+                         "evolution strategy (es)")
+    ap.add_argument("--train-pop", type=int, default=16, metavar="N",
+                    help="candidate population per generation")
+    ap.add_argument("--train-scenarios", type=int, default=8, metavar="S",
+                    help="training scenarios (drawn with --trace/--seed)")
+    ap.add_argument("--train-heldout", type=int, default=4, metavar="S",
+                    help="held-out scenarios for model selection and "
+                         "early stopping")
+    ap.add_argument("--train-dir", default="", metavar="DIR",
+                    help="checkpoint directory for the trained policy "
+                         "(deploy with --pool trained:DIR); empty trains "
+                         "in memory only")
     # reference modes not ported yet: accepted only to be rejected
     ap.add_argument("--shard", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--block-size", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--prefetch", type=int, default=2,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--train", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--chaos", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--snapshot-dir", default="", help=argparse.SUPPRESS)
     return ap
 
 
@@ -171,26 +228,71 @@ def make_race(args) -> Optional[RaceSpec]:
 
 
 def co_simulate(args, engine: Optional[DrainEngine] = None):
-    """Run the twin against the emulator; returns (report, twin, bus)."""
+    """Run the twin against the emulator; returns (report, twin, bus).
+    With --snapshot-dir it snapshots as the reference does, with
+    --resume it starts from the latest snapshot, and with
+    --kill-after-cycle it raises ``SystemExit`` after that cycle."""
     engine = engine if engine is not None else DrainEngine(
         backend=args.backend, device=args.device)
     pool = parse_pool(args.pool)
     goal = validate_objective(args.objective)
     trace = make_trace(args)
     bus = EventBus()
+    manager = (CheckpointManager(args.snapshot_dir) if args.snapshot_dir
+               else None)
+    app = None
+    if args.resume:
+        # the bus log is needed before the emulator and twin are built;
+        # twin.restore() reads the rest of the same step
+        step = manager.latest_step()
+        if step is None:
+            raise SystemExit(f"--resume: no snapshot under "
+                             f"{args.snapshot_dir!r}")
+        app = manager.manifest(step).get("extra", {}).get("app", {})
+        bus = EventBus.from_dump(app.get("bus", []))
     em = ClusterEmulator(trace, args.nodes, bus=bus,
                          failures=make_failures(args, trace),
                          check_invariants=True, engine=engine)
     race = make_race(args)
+    view = bus
+    if args.chaos:
+        view = ChaosBus(bus, dataclasses.replace(DEFAULT_PROFILE,
+                                                 seed=args.seed))
+        print(f"chaos: {view.spec}")
     twin = SchedTwin(
-        bus=bus, qrun=em.qrun, total_nodes=args.nodes,
+        bus=view, qrun=em.qrun, total_nodes=args.nodes,
         max_jobs=em.max_jobs, pool=pool, objective=goal,
         free_nodes_probe=lambda: em.free_nodes,
         jobs_probe=em.jobs_view, guard=args.budget_s or None,
         ensemble=args.ensemble, fan=None if race else make_fan(args),
         race=race, engine=engine)
-    report = em.run(on_event=twin.pump, objective=goal,
-                    on_quiesce=twin.flush)
+    if args.resume:
+        step, app = twin.restore(manager)
+        em.restore_state(app["emulator"])
+        print(f"resumed from snapshot step {step} "
+              f"({len(twin.telemetry.cycles)} cycles already decided)")
+
+    def take_snapshot():
+        twin.snapshot(manager, app_extra={
+            "emulator": em.snapshot_state(), "bus": bus.dump()})
+
+    snap_next = [args.snapshot_every]
+
+    def pump():
+        twin.pump()
+        cyc = len(twin.telemetry.cycles)
+        if manager is not None and cyc >= snap_next[0]:
+            take_snapshot()
+            snap_next[0] = cyc + args.snapshot_every
+        if args.kill_after_cycle and cyc >= args.kill_after_cycle:
+            take_snapshot()
+            raise SystemExit(
+                f"killed after cycle {cyc} (snapshot persisted under "
+                f"{args.snapshot_dir!r}; rerun with --resume)")
+
+    report = em.run(on_event=pump, objective=goal, on_quiesce=twin.flush)
+    if manager is not None:
+        take_snapshot()
     return report, twin, bus
 
 
@@ -249,7 +351,12 @@ def print_report(report: RunReport, twin: SchedTwin, bus: EventBus,
           f"reordered={res['reordered']} gaps={res['gaps']} "
           f"lost={res['lost']} resyncs={res['resyncs']} "
           f"read_retries={res['read_retries']}")
-    print(f"bus health: {bus.health()}")
+    chaos = twin.bus.stats if isinstance(twin.bus, ChaosBus) else None
+    print(f"bus health: {bus.health()}"
+          + (f", chaos injected: {chaos}" if chaos is not None else ""))
+    if twin.dead_letters:
+        print(f"dead letters: {len(twin.dead_letters)} quarantined "
+              f"(first: {twin.dead_letters[0].reason})")
 
 
 def _host(t):
@@ -348,6 +455,58 @@ def replay_grid(args, engine: DrainEngine, goal: Objective) -> None:
           f"{[names[int(b)] for b in best]}")
 
 
+def train_mode(args, engine: DrainEngine, goal: Objective,
+               floor_pool) -> None:
+    """--train: the learner on a deterministic scenario split,
+    checkpointed to --train-dir, then the incumbent scored against the
+    --pool statics on the held-out scenarios (the comparison ``--pool
+    trained:<dir>,<statics>`` deploys live)."""
+    from repro_torch.learn import TrainConfig, train
+
+    rng = np.random.default_rng(args.seed)
+    if args.trace == "paper":
+        trace_fn = lambda r: paper_synthetic_trace(rng=r)  # noqa: E731
+    elif args.trace == "bursty":
+        trace_fn = lambda r: bursty_trace(  # noqa: E731
+            args.jobs, args.nodes, 8.0, (1, args.nodes), (30.0, 900.0),
+            rng=r)
+    else:
+        trace_fn = lambda r: poisson_trace(  # noqa: E731
+            args.jobs, args.nodes, 8.0, (1, args.nodes), (30.0, 900.0),
+            rng=r)
+    train_scen, heldout = split_scenarios(
+        rng, trace_fn, args.train_scenarios, args.train_heldout,
+        args.nodes)
+    cfg = TrainConfig(family=args.train_family,
+                      strategy=args.train_strategy,
+                      population=args.train_pop, generations=args.train,
+                      objective=goal, seed=args.seed, fan=make_fan(args))
+    print(f"train: {cfg.strategy}/{cfg.family} pop={cfg.population} x "
+          f"{args.train_scenarios} train scenarios "
+          f"(+{args.train_heldout} held-out), goal {goal}")
+    t0 = time.perf_counter()
+    res = train(train_scen, heldout, cfg, engine=engine,
+                checkpoint_dir=args.train_dir or None,
+                resume=args.resume, log_fn=print)
+    wall = time.perf_counter() - t0
+    print(f"trained {res.generations_run} generations in {wall:.1f}s"
+          f"{' (early stop)' if res.stopped_early else ''}: "
+          f"{res.best_desc}")
+
+    # held-out scoreboard: the incumbent and the --pool statics in one
+    # grid (within-pool, so rank-based goals compare like with like)
+    board = res.pool + floor_pool
+    costs = _host(engine.generation_costs(heldout, board.spec, goal))
+    agg = np.asarray(costs, np.float64).mean(axis=0)
+    print(f"{'policy':>16s} {'held-out cost':>14s}")
+    for p, name in enumerate(board.names):
+        mark = " <- trained" if p == 0 else ""
+        print(f"{name:>16s} {agg[p]:14.4f}{mark}")
+    if args.train_dir:
+        print(f"deploy: --pool trained:{args.train_dir}"
+              f"{',' + args.pool if args.pool else ''}")
+
+
 def check_flags(ap: argparse.ArgumentParser, args) -> None:
     """Refuse the modes not ported yet (each names its ROADMAP item),
     then the reference's flag combinations that apply here."""
@@ -370,9 +529,27 @@ def check_flags(ap: argparse.ArgumentParser, args) -> None:
     if (args.race_f0 != 8 or args.budget_ms or args.race_members) \
             and not args.race:
         ap.error("--race-f0/--budget-ms/--race-members apply to --race")
-    if args.replay_grid and args.budget_s:
+    if args.replay_grid and (args.chaos or args.snapshot_dir
+                             or args.budget_s):
         ap.error("--chaos/--snapshot-dir/--budget-s apply to the twin "
                  "co-simulation, not --replay-grid")
+    if args.train:
+        if args.replay_grid:
+            ap.error("--train and --replay-grid are mutually exclusive")
+        if (args.failures or args.ensemble > 1 or args.race
+                or args.chaos or args.snapshot_dir or args.budget_s
+                or args.prune or args.kill_after_cycle):
+            ap.error("--train runs the learning loop; co-simulation and "
+                     "racing flags do not apply")
+        if args.resume and not args.train_dir:
+            ap.error("--train --resume requires --train-dir")
+    elif (args.train_dir or args.train_pop != 16
+          or args.train_scenarios != 8 or args.train_heldout != 4):
+        ap.error("--train-* flags apply to --train G")
+    if (args.kill_after_cycle or args.resume) and not (
+            args.snapshot_dir or args.train):
+        ap.error("--kill-after-cycle/--resume require --snapshot-dir "
+                 "(or --train --train-dir)")
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -391,6 +568,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"objective: {goal} ({type(goal).__name__})")
     if args.replay_grid:
         return replay_grid(args, engine, goal)
+    if args.train:
+        return train_mode(args, engine, goal, pool)
     report, twin, bus = co_simulate(args, engine)
     print_report(report, twin, bus, make_race(args))
 

@@ -78,6 +78,16 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   ``replay_grid`` of its ``materialize_fan`` rows; ``decide_fan``,
   ``decide_ensemble`` and ``decide_race`` on a snapshot, cuda against
   reference: identical in every field; K1 launched on every cuda path.
+* ``prng.sin_f32`` (glibc's ``sinf``) on the card against the CPU over
+  ±1e5 rad and the region around 120 rad: identical.
+* The learner (``learn.train``): a generation's costs on ``cuda``
+  identical to ``reference`` on the card; a run resumed from its
+  generation-2 checkpoint on the card identical to the uninterrupted
+  one (θ, history, held-out cost); K1 launched by both.
+* Twin snapshots on the card: a co-simulation killed after four cycles,
+  snapshot, restored into a fresh ``cuda`` twin and run to the end
+  makes the uninterrupted run's decisions (an ensemble twin, so the key
+  chain rides the snapshot).
 """
 import numpy as np
 import pytest
@@ -817,3 +827,114 @@ def test_monte_carlo_decisions_cuda_match_reference():
                   "cost_ci", "fan_width"):
             assert torch.equal(getattr(got, f), getattr(want, f)), (name, f)
         assert got.fan_size == want.fan_size
+
+
+@pytest.mark.cuda
+def test_sin_on_the_card_matches_the_cpu():
+    from repro_torch.core import prng
+    _card()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(-1e5, 1e5, 1 << 20), rng.uniform(110.0, 130.0, 1 << 16),
+        rng.uniform(-1.0, 1.0, 1 << 16)]).astype(np.float32))
+    got = prng.sin_f32(x.cuda()).cpu()
+    assert torch.equal(got.view(torch.int32), prng.sin_f32(x).view(
+        torch.int32))
+
+
+def _learn_split():
+    return workload.split_scenarios(
+        np.random.default_rng(3),
+        lambda r: workload.poisson_trace(48, 32, 20.0, (1, 12),
+                                         (60.0, 1800.0), rng=r), 3, 2, 32)
+
+
+@pytest.mark.cuda
+def test_generation_costs_cuda_match_reference():
+    from repro_torch.core.policies import FAM_WFP, theta_pool
+    from repro_torch.learn import family_space
+    from repro_torch.learn.strategy import draw_eps
+    _card()
+    train_scen, _ = _learn_split()
+    thetas = family_space("wfp").decode(draw_eps(0, 0, 16, 3, True))
+    pool = theta_pool(FAM_WFP, thetas).spec
+    pe.LAUNCHES = 0
+    got = DrainEngine("cuda", device="cuda").generation_costs(
+        train_scen, pool, "score")
+    torch.cuda.synchronize()
+    assert pe.LAUNCHES > 0
+    want = DrainEngine("reference", device="cuda").generation_costs(
+        train_scen, pool, "score")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_train_resume_on_the_card(tmp_path):
+    import dataclasses
+    from repro_torch.learn import TrainConfig, load_trained_pool, train
+    _card()
+    split = _learn_split()
+    cfg = TrainConfig(family="wfp", strategy="cem", population=8,
+                      generations=3, objective="score", seed=1, patience=0)
+    eng = DrainEngine("cuda", device="cuda")
+    pe.LAUNCHES = 0
+    full = train(*split, cfg, engine=eng,
+                 checkpoint_dir=str(tmp_path / "full"))
+    assert pe.LAUNCHES > 0
+    part = str(tmp_path / "part")
+    train(*split, dataclasses.replace(cfg, generations=2), engine=eng,
+          checkpoint_dir=part)
+    resumed = train(*split, cfg, engine=eng, checkpoint_dir=part,
+                    resume=True)
+    assert np.array_equal(full.theta, resumed.theta)
+    assert full.history == resumed.history
+    assert full.best_heldout == resumed.best_heldout
+    assert torch.equal(load_trained_pool(part).spec.theta,
+                       load_trained_pool(str(tmp_path / "full")).spec.theta)
+
+
+@pytest.mark.cuda
+def test_twin_snapshot_restore_on_the_card(tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.cluster.emulator import ClusterEmulator
+    from repro_torch.core.events import EventBus
+    from repro_torch.core.twin import SchedTwin
+    _card()
+    trace = workload.poisson_trace(40, 32, 6.0, (1, 16), (30.0, 900.0),
+                                   seed=4)
+    eng = DrainEngine("cuda", device="cuda")
+
+    def make_twin(bus, em):
+        return SchedTwin(bus=bus, qrun=em.qrun, total_nodes=32,
+                         max_jobs=em.max_jobs, pool="extended",
+                         free_nodes_probe=lambda: em.free_nodes,
+                         jobs_probe=em.jobs_view, engine=eng, ensemble=4,
+                         seed=2)
+
+    def build():
+        bus = EventBus()
+        em = ClusterEmulator(trace, 32, bus=bus, engine=eng)
+        return bus, em, make_twin(bus, em)
+
+    def decisions(twin):
+        return [(c.time, c.policy, c.started_jobs)
+                for c in twin.telemetry.cycles]
+
+    _, em, twin = build()
+    em.run(on_event=twin.pump, on_quiesce=twin.flush)
+    ref = decisions(twin)
+    bus, em, twin = build()
+    mgr = CheckpointManager(str(tmp_path))
+    holder = {"twin": twin}
+
+    def pump():
+        t = holder["twin"]
+        t.pump()
+        if t is twin and len(t.telemetry.cycles) >= 4:
+            t.snapshot(mgr)
+            holder["twin"] = make_twin(bus, em)
+            holder["twin"].restore(mgr)
+
+    em.run(on_event=pump, on_quiesce=lambda: holder["twin"].flush())
+    assert holder["twin"] is not twin
+    assert decisions(holder["twin"]) == ref

@@ -23,11 +23,11 @@ Parity with the reference, in three layers:
      the reference's ``fan_grid``; member costs rtol 1e-5 (f32 metric
      sums in torch's order, ROADMAP C4); winners identical;
   3. the port's fan end to end against the reference's ``fan_grid``:
-     rows bitwise for runtime-noise, failure and domain fans (XLA's
-     ``exp`` is carried in ``prng.exp_f32``), and then times identical;
-     burst fans' rows can differ by an ulp of ``sin`` (ROADMAP C11), so
-     there the winners are compared and every divergent scenario is
-     listed with its cost gap (none are expected at this size).
+     rows bitwise for runtime-noise, failure, domain and burst fans
+     (XLA's ``exp`` and ``sin`` are carried in ``prng.exp_f32`` and
+     ``prng.sin_f32``), and then times identical; burst fans' winners
+     are also compared on their own, every divergent scenario listed
+     with its cost gap (none are expected).
 """
 import dataclasses
 
@@ -130,7 +130,8 @@ def test_member_zero_exact_under_noise(scen, spec):
 @pytest.mark.parametrize("spec", [NOISY, DOMAINS], ids=["noisy", "domains"])
 def test_fan_matches_materialized_oracle_bitwise(scen, spec):
     fan = TREF.fan_grid(scen, POOL.spec, spec, "avg_wait")
-    mat = TREF.replay_grid(materialize_fan(scen, spec), POOL.spec,
+    mat = TREF.replay_grid(materialize_fan(scen, spec, device="cpu"),
+                           POOL.spec,
                            "avg_wait")
     S, F, P = fan.member_costs.shape
     _eq(mat.costs.reshape(S, F, P), fan.member_costs)
@@ -531,11 +532,15 @@ def test_fan_grid_bitwise_reference(scen, jscen, kw, goal):
     """Layer 3, exact models: the port's rows are the reference's bit for
     bit, so the whole fan's times are identical and its selection
     agrees (costs to C4's rtol, winners identical)."""
+    _assert_fan_bitwise(scen, jscen, kw, goal)
+
+
+def _assert_fan_bitwise(scen, jscen, kw, goal):
     j = JREF.fan_grid(jscen, JPOOL.spec, jfan.FanSpec(**kw), goal)
     t = TREF.fan_grid(scen, POOL.spec, FanSpec(**kw), goal)
     _assert_times_equal(t, j, str(kw))
     jrows = jfan.materialize_fan(jscen, jfan.FanSpec(**kw))
-    trows = materialize_fan(scen, FanSpec(**kw))
+    trows = materialize_fan(scen, FanSpec(**kw), device="cpu")
     for f in ("submit_t", "true_runtime", "total_nodes", "valid"):
         _eq(getattr(trows, f), getattr(jrows, f), f)
     np.testing.assert_allclose(_np(t.member_costs),
@@ -551,9 +556,8 @@ def test_fan_grid_bitwise_reference(scen, jscen, kw, goal):
 @pytest.mark.parametrize("goal", ["p95:avg_wait", "cvar:0.9:score",
                                   "mean:score"])
 def test_burst_fan_winners_match_reference(scen, jscen, kw, goal):
-    """Layer 3, burst warps: ``sin`` may part by an ulp (C11), so the
-    winners are compared; a divergent scenario must be a near tie and is
-    listed with its cost gap."""
+    """Layer 3, burst warps: the winners are compared on their own; a
+    divergent scenario would be listed with its cost gap."""
     j = JREF.fan_grid(jscen, JPOOL.spec, jfan.FanSpec(**kw), goal)
     t = TREF.fan_grid(scen, POOL.spec, FanSpec(**kw), goal)
     jb, tb = np.asarray(j.best), _np(t.best)
@@ -563,3 +567,18 @@ def test_burst_fan_winners_match_reference(scen, jscen, kw, goal):
            for s in range(len(jb)) if jb[s] != tb[s]]
     assert not div, f"divergent winners (scenario, ref, port, gap): {div}"
     np.testing.assert_allclose(_np(t.costs), jc, rtol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [NOISY_KW,
+                                dict(n=16, burst_amplitude=0.3,
+                                     burst_period=900.0, seed=1),
+                                dict(n=8, burst_amplitude=0.9,
+                                     burst_period=600.0, seed=3)],
+                         ids=["noisy", "burst", "burst_strong"])
+@pytest.mark.parametrize("goal", ["p95:avg_wait", "cvar:0.9:score",
+                                  "mean:score"])
+def test_burst_fan_grid_bitwise_reference(scen, jscen, kw, goal):
+    """Layer 3, burst warps (C11 repaired): the warped arrivals are the
+    reference's bit for bit (``prng.sin_f32`` is XLA's ``sin``), so the
+    rows, times and winners are identical, as for the other models."""
+    _assert_fan_bitwise(scen, jscen, kw, goal)

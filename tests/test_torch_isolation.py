@@ -12,7 +12,9 @@
   CPU or CUDA tensors.  The Monte-Carlo entry points (``decide_fan``,
   ``decide_ensemble``, ``fan_grid``, ``race_grid``, ``decide_race``,
   ``pruned_fan_grid``, ``materialize_fan``, ``SchedTwin(fan=/race=/
-  ensemble=)``, ``twin_loop --fan/--race/--ensemble/--prune``) too.
+  ensemble=)``, ``twin_loop --fan/--race/--ensemble/--prune``) too, and
+  so do the learner (``train``), ``CheckpointManager.restore`` and
+  ``twin_loop --train/--chaos/--snapshot-dir``.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -157,8 +159,9 @@ def test_monte_carlo_entry_points_raise_for_cuda_without_a_card():
         "race_grid": lambda: race.race_grid(scen, ids, spec),
         "decide_race": lambda: race.decide_race(_cpu_state(), ids, spec),
         "pruned_fan_grid": lambda: fan.pruned_fan_grid(scen, ids, spec),
-        "materialize_fan": lambda: fan.materialize_fan(scen, spec,
-                                                       device="cuda"),
+        "materialize_fan": lambda: fan.materialize_fan(scen, spec),
+        "materialize_fan(cuda)": lambda: fan.materialize_fan(
+            scen, spec, device="cuda"),
         "SchedTwin(fan=)": lambda: SchedTwin(EventBus(), lambda j, t: None,
                                              8, fan=spec),
         "SchedTwin(race=)": lambda: SchedTwin(
@@ -173,6 +176,43 @@ def test_monte_carlo_entry_points_raise_for_cuda_without_a_card():
             small + ["--ensemble", "2"]),
         "twin_loop.main --replay-grid --fan --prune": lambda: twin_loop.main(
             ["--replay-grid", "2", "--fan", "4", "--prune"] + small),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_learning_and_resilience_entry_points_raise_for_cuda_without_a_card(
+        tmp_path):
+    """Training, checkpoint restore and the CLI's training, chaos and
+    snapshot modes: asked for ``cuda`` (their default) without a card,
+    each raises; none goes on on the CPU."""
+    _no_card()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.cluster.workload import split_scenarios
+    from repro_torch.learn import TrainConfig, train
+    split = split_scenarios(
+        np.random.default_rng(0),
+        lambda r: poisson_trace(4, 8, 8.0, (1, 8), (30.0, 90.0), rng=r),
+        1, 1, 8)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, {"x": torch.zeros(2)})
+    small = ["--trace", "poisson", "--jobs", "4", "--nodes", "8"]
+    calls = {
+        "train": lambda: train(*split, TrainConfig(population=2,
+                                                   generations=1)),
+        "train(cuda)": lambda: train(*split, TrainConfig(
+            population=2, generations=1), device="cuda"),
+        "CheckpointManager.restore": lambda: mgr.restore(
+            1, {"x": torch.zeros(2)}),
+        "CheckpointManager.restore_latest": lambda: mgr.restore_latest(
+            {"x": torch.zeros(2)}),
+        "twin_loop.main --train": lambda: twin_loop.main(
+            small + ["--train", "1", "--train-pop", "2"]),
+        "twin_loop.main --chaos": lambda: twin_loop.main(
+            small + ["--chaos"]),
+        "twin_loop.main --snapshot-dir": lambda: twin_loop.main(
+            small + ["--snapshot-dir", str(tmp_path / "snap")]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -151,9 +151,14 @@ def test_time_invariant_mask_for_id_pools_and_bad_terms():
         np.testing.assert_array_equal(
             tpol.time_invariant_mask(torch.tensor(ids, dtype=torch.int32)),
             jpol.time_invariant_mask(jnp.asarray(ids, jnp.int32)))
-    with pytest.raises(NotImplementedError, match="A9"):
+    # trained:<dir> is ported (A9): a missing directory raises as in the
+    # reference
+    with pytest.raises(FileNotFoundError) as port:
         tpol.parse_pool("trained:some/dir")
-    for bad in ("nope", "fcfs:a=1", "wfp:zz=1", "wfp:a=1..5"):
+    with pytest.raises(FileNotFoundError) as ref:
+        jpol.parse_pool("trained:some/dir")
+    assert str(port.value) == str(ref.value)
+    for bad in ("nope", "fcfs:a=1", "wfp:zz=1", "wfp:a=1..5", "trained:"):
         with pytest.raises(ValueError):
             tpol.parse_pool(bad)
 

@@ -10,8 +10,11 @@ torch's (``torch.erfinv`` differed in 59% of 200k draws, by up to 88
 ulp); the count of differing draws is asserted to be 0 over 800k
 draws.  ``exp_f32`` (the lognormal factor's ``exp``): identical to
 ``jnp.exp`` on 800k arguments in (-87, 87); ``log_f32``, ``log1p_f32``
-and ``sqrt_f32``: identical to ``jnp.log``/``log1p``/``sqrt``.  A
-hypothesis test draws seeds, fold-in chains and shapes.
+and ``sqrt_f32``: identical to ``jnp.log``/``log1p``/``sqrt``.
+``sin_f32`` (glibc's ``sinf``, which XLA's f32 ``sin`` is on the CPU):
+identical to ``jnp.sin`` on ~1.3M arguments over every branch and in a
+hypothesis test over ±1e5 and the region around 120 rad.  A hypothesis
+test draws seeds, fold-in chains and shapes.
 """
 import jax
 import jax.numpy as jnp
@@ -161,6 +164,54 @@ def test_exp_log_sqrt_match_xla():
                                       minval=-0.9999, maxval=0.0))
     _same_bits(jax.jit(jnp.log1p)(jnp.asarray(m)),
                prng.log1p_f32(torch.tensor(m)).numpy())
+
+
+def _sin_both(xs):
+    xs = np.asarray(xs, np.float32)
+    _same_bits(jax.jit(jnp.sin)(jnp.asarray(xs)),
+               prng.sin_f32(torch.tensor(xs)).numpy())
+
+
+def test_sin_matches_xla_over_its_paths():
+    """``sin_f32`` against ``jnp.sin`` (C11): every branch of glibc's
+    ``sinf`` — |x| < 2**-12, < 0.75, the fast reduction below 120, the
+    4/pi-table reduction above, up to the f32 maximum — and the burst
+    warp's own arguments ``omega * submit + phase``."""
+    rng = np.random.default_rng(0)
+    big = rng.integers(0, 0x7F800000, 200_000).astype(np.uint32)
+    warp = (2 * np.pi / rng.uniform(600.0, 900.0, 100_000)) * \
+        rng.uniform(0.0, 5e4, 100_000) + rng.uniform(0, 2 * np.pi, 100_000)
+    _sin_both(np.concatenate([
+        rng.uniform(-1e5, 1e5, 400_000), rng.uniform(-130.0, 130.0, 200_000),
+        rng.uniform(119.0, 121.0, 50_000), -rng.uniform(119.0, 121.0, 50_000),
+        rng.uniform(-1.0, 1.0, 50_000), rng.uniform(-3e-4, 3e-4, 10_000),
+        big.view(np.float32), -big.view(np.float32), warp,
+        [0.0, -0.0, 0.75, -0.75, 2.0**-12, 120.0, -120.0, 1e-45, 3e38]]))
+
+
+def test_sin_edges():
+    xs = torch.tensor([np.inf, -np.inf, np.nan], dtype=torch.float32)
+    assert torch.isnan(prng.sin_f32(xs)).all()
+    z = prng.sin_f32(torch.tensor([0.0, -0.0])).numpy()
+    assert z.view(np.uint32).tolist() == [0, 0x80000000]
+
+
+def test_hypothesis_sin_matches_xla():
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    f32 = dict(width=32, allow_nan=False, allow_infinity=False)
+
+    @settings(max_examples=60, deadline=None)
+    @given(xs=st.lists(st.one_of(st.floats(-1e5, 1e5, **f32),
+                                 st.floats(110.0, 130.0, **f32),
+                                 st.floats(-130.0, -110.0, **f32)),
+                       min_size=1, max_size=64))
+    def run(xs):
+        _sin_both(xs)
+
+    run()
 
 
 def test_hypothesis_seeds_chains_and_shapes():

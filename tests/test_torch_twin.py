@@ -127,40 +127,51 @@ def test_twin_loop_main_runs_on_cpu(capsys):
 
 #: Modes of the reference CLI that the port runs (the other cases of
 #: ``test_twin_loop_rejects_unported_modes`` still refuse).
+_TRAIN = ["--train", "2", "--train-pop", "4", "--train-scenarios", "2",
+          "--train-heldout", "1"]
 _PORTED_MODES = (["--fan", "8"], ["--fan", "8", "--race"],
-                 ["--ensemble", "4"])
+                 ["--ensemble", "4"], _TRAIN, ["--chaos"],
+                 ["--snapshot-dir", "x"])
 
 
 def _cosim_table(text):
     """A co-simulation's printed report without its first line (the
     port's names the device) and its wall-time line."""
     return [line for line in text.splitlines()[1:]
-            if not line.startswith("cycle latency:")]
+            if not line.startswith(("cycle latency:", "trained "))]
 
 
 @pytest.mark.parametrize("flag", [["--replay-grid", "4", "--shard", "2"],
-                                  ["--train", "2"],
+                                  _TRAIN,
                                   ["--fan", "8"], ["--fan", "8", "--race"],
                                   ["--ensemble", "4"], ["--chaos"],
                                   ["--snapshot-dir", "x"]])
-def test_twin_loop_rejects_unported_modes(flag, capsys, monkeypatch):
+def test_twin_loop_rejects_unported_modes(flag, capsys, monkeypatch,
+                                          tmp_path):
     """The modes not ported yet refuse, naming their ROADMAP item; the
-    fan, race and ensemble modes run on the CPU and print the reference
-    CLI's report (``--backend reference``) line for line: the metric
-    table, the what-if breakdown, the policy mix, the fan confidence and
-    race lines, resilience and bus health."""
+    fan, race, ensemble, training, chaos and snapshot modes run on the
+    CPU and print the reference CLI's report (``--backend reference``)
+    line for line: the metric table, the what-if breakdown, the policy
+    mix, the fan confidence and race lines, resilience, bus health and
+    the chaos counts, or the trainer's generations and held-out board
+    (wall times aside)."""
     if flag in _PORTED_MODES:
-        tloop.main(ARGS + ["--device", "cpu"] + flag)
+        port_flag = [str(tmp_path / "t") if f == "x" else f for f in flag]
+        ref_flag = [str(tmp_path / "j") if f == "x" else f for f in flag]
+        tloop.main(ARGS + ["--device", "cpu"] + port_flag)
         port = capsys.readouterr().out
         monkeypatch.setattr(sys, "argv", ["twin_loop", "--no-compile-cache",
                                           "--backend", "reference"]
-                            + ARGS + flag)
+                            + ARGS + ref_flag)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             jloop.main()
         assert _cosim_table(port) == _cosim_table(buf.getvalue())
-        assert "fan confidence" in port
+        assert ("fan confidence" in port) == (
+            "--fan" in flag or "--ensemble" in flag)
         assert ("race:" in port) == ("--race" in flag)
+        assert ("chaos injected:" in port) == ("--chaos" in flag)
+        assert ("<- trained" in port) == ("--train" in flag)
         return
     with pytest.raises(SystemExit) as exc:
         tloop.main(ARGS + ["--device", "cpu"] + flag)
