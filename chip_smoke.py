@@ -95,8 +95,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      ``reference`` on an S=1 x F=8 slice, wall, iterations, host reads,
      a block under ``set_sync_debug_mode("error")``, four traced blocks,
      K1 on a pass (k=512) against its plain version; (f)
-     ``race_grid`` from F0=4 to F_max=32 over (e)'s scenarios: winners
-     those of ``fan_grid`` at F=32, members, rungs, ``stopped``, walls;
+     ``race_grid`` from F0=4 to F_max=16 over (e)'s scenarios: winners
+     those of (e)'s fan, members, rungs, ``stopped``, walls;
      (g) ``twin_loop --fan 8 --race``, ``--ensemble 4`` and
      ``--replay-grid 4 --fan 8 --prune`` print the same report on cuda
      and cpu.  Each path runs with K1's count set to 0 before it and
@@ -106,15 +106,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      on the card against the CPU over 2**20 + 2**17 arguments in ±1e5
      rad and around 120 rad, and phase 13 (e)'s burst fan materialized
      on cuda against cpu: bitwise; (b) ``learn.train`` at Polaris scale
-     (CEM over wfp, population 16, 3 generations, goal ``score``, on 4
+     (CEM over wfp, population 16, 2 generations, goal ``score``, on 4
      training and 2 held-out traces of phase 12's family, J=1024: gen 0
      evaluates 4 x 18 and 2 x 18 forks), checkpointed every generation
      under ``build/``: per generation the wall, each grid's wall, K1
      launches and host reads and the history line; gen 0's grid on one
      scenario cuda bitwise ``reference``; four traced blocks of gen 0's
      training grid, and K1 on the next pass (k=72) against its plain
-     version with its time and bound; a resume from the step-2 checkpoint alone bitwise
-     the uninterrupted run (θ, history, held-out cost); ``trained:<dir>,
+     version with its time and bound; a resume from the step-1
+     checkpoint alone bitwise the uninterrupted run (θ, history,
+     held-out cost); ``trained:<dir>,
      paper`` deploying the in-memory θ's held-out costs bitwise; (c)
      five ``SchedTwin(ensemble=8)`` Polaris cycles against two, a
      snapshot, and three on a fresh twin restored from it: qrun sets,
@@ -122,7 +123,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      and bytes on disk; (d) ``twin_loop --chaos``, the same killed after
      cycle 20 and resumed (its metric table, what-if breakdown and
      policy mix those of the uninterrupted run), ``--train 2`` and
-     ``--pool trained:<dir>,paper``, on cuda and cpu: the same reports.
+     ``--pool trained:<dir>,paper``, on cuda and cpu: the same reports;
+ 15. the fleet engine (``core.whatif.sharded_*``) at Polaris scale, K1
+     the pass of every path: (a) ``replay_grid`` over 256 traces of
+     phase 12's family x the k=32 DRAS pool (8,192 forks, 8.4M job
+     slots, ``score``) against ``sharded_replay_grid(make_fleet_mesh(),
+     block_size=64)`` (4 blocks of 2,048 forks) at prefetch depths 2 and
+     0: every field bitwise; walls, peak device memory
+     (``max_memory_allocated``, reset before each run), K1 launches and
+     host reads of each; K1 on the 1,001st pass of the one-shot grid
+     (k=8,192) and of the stream's first block (k=2,048) bitwise its
+     plain version, with its time and bound; the first 16 scenarios
+     replayed by the ``reference`` backend on the card bitwise the
+     stream's rows; the one-shot rows of those 16 scenarios scored alone
+     against the full grid's metrics; (b) a mesh of cuda:0 named twice
+     over those 16 scenarios in blocks of 8: bitwise the one-shot rows; (c) ``sharded_fan_grid`` over phase 13 (e)'s fan in
+     blocks of 4 pseudo-scenarios bitwise phase 13 (e)'s ``fan_grid``,
+     and ``sharded_race_grid`` F0=4 -> 16 in blocks of 8 window rows:
+     the winners, rungs and members of phase 13 (f)'s ``race_grid``; (d)
+     ``sharded_whatif`` on phase 4's mirror, one shard and cuda:0 named twice, bitwise
+     ``decide``, and ``decide_legacy_vmap`` there: the same winner,
+     qrun set and deadlocks, costs within rtol 1e-5; (e) ``twin_loop --replay-grid 8`` (also ``--fan 8`` and
+     ``--fan 8 --race``) with ``--shard 0 --block-size 4 --prefetch 2``
+     on cuda and cpu: the report of the grid without those flags; (f)
+     the three examples (``repro_torch.examples``) on cuda, each in a
+     process of its own, side by side: each exits 0; its wall and K1
+     launches.  Each path runs with K1's count set to 0
+     before it and read after; a path that never launched K1 fails the
+     phase.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1590,7 +1618,9 @@ FAN_GRID_SCENARIOS = 1       # S of phase 12's traces in (e) and (f): cut
 FAN_GRID = dict(n=16, runtime_noise=0.3, burst_amplitude=0.2,
                 failure_prob=0.1, failure_domains=4)           # S x 512 forks
 FAN_GRID_GOAL = "cvar:0.9:score"
-RACE_GRID = dict(f_max=32, f0=4)
+FAN_SLICE = 8                # (e): members of the reference slice
+RACE_F0 = 4                  # (f): F0 of the race up to (e)'s F=16 (F_max
+#                              cut from 32 for time); phase 15 (c) reuses both
 FAN_CLI = (["--fan", "8", "--race"], ["--ensemble", "4"],
            ["--replay-grid", "4", "--fan", "8", "--prune"])
 
@@ -1627,25 +1657,29 @@ def prng_on_card(torch):
     return differ
 
 
-def capture_first_pass(pe, fn):
-    """Run ``fn()`` with K1's wrapper recording the inputs of its first
-    launch; returns (fn's result, those inputs)."""
-    real, seen = pe.policy_eval_pass_batched, []
+def capture_pass(pe, fn, at=0, host=False):
+    """Run ``fn()`` with K1's wrapper recording the inputs of its launch
+    number ``at`` (the first by default; copied to the host with
+    ``host``, so the device's peak memory is not raised); returns (fn's
+    result, those inputs, on the card)."""
+    real, seen, n = pe.policy_eval_pass_batched, [], [0]
 
     def spy(*args):
-        if not seen:
-            seen.append(tuple(None if a is None else a.clone()
+        if n[0] == at:
+            seen.append(tuple(None if a is None else
+                              (a.cpu() if host else a.clone())
                               for a in args))
+        n[0] += 1
         return real(*args)
     pe.policy_eval_pass_batched = spy
     try:
         out = fn()
     finally:
         pe.policy_eval_pass_batched = real
-    return out, seen[0]
+    return out, tuple(None if a is None else a.cuda() for a in seen[0])
 
 
-def k1_on(torch, pe, args, tag):
+def k1_on(torch, pe, args, tag, which="first pass"):
     """K1 on one captured pass of a new path: bitwise its plain version,
     time (C entry, back-to-back), the plain version's time, the bound."""
     from repro_torch.core.backfill import schedule_pass_batched
@@ -1658,7 +1692,7 @@ def k1_on(torch, pe, args, tag):
     plain_ms = time_ms(torch, lambda: schedule_pass_batched(*args), 5)
     bnd, by = k1_bound_ms(torch, args)
     k, J = args[0].shape
-    print(f"{tag} K1 on the path's first pass (k={k}, J={J}, "
+    print(f"{tag} K1 on the path's {which} (k={k}, J={J}, "
           f"{int(s_k.sum())} starts): bitwise its plain version; "
           f"{ms * 1e3:.2f} us per launch, plain {plain_ms:.3f} ms, bound "
           f"{bnd * 1e3:.3f} us ({by})")
@@ -1695,7 +1729,7 @@ def fan_decide_phase(torch, pe, snapshot, card):
         return d
     pe.LAUNCHES = 0
     t0 = time.perf_counter()
-    got, first = capture_first_pass(pe, lambda: decide(cuda))
+    got, first = capture_pass(pe, lambda: decide(cuda))
     cold = time.perf_counter() - t0
     launches = pe.LAUNCHES
     if launches == 0:
@@ -1798,7 +1832,7 @@ def race_decide_phase(torch, pe, snapshot, card):
 def fan_grid_phase(torch, pe, card):
     """(e) ``fan_grid`` over S (``FAN_GRID_SCENARIOS``) of phase 12's
     traces x F=16 x the k=32 DRAS pool; (f) ``race_grid`` over them,
-    F_max=32 from F0=4."""
+    F_max=16 from F0=4."""
     from repro_torch.cluster.workload import stack_scenarios
     from repro_torch.core import des
     from repro_torch.core.engine import (DrainEngine,
@@ -1847,13 +1881,13 @@ def fan_grid_phase(torch, pe, card):
                                           "est_runtime", "true_runtime",
                                           "valid", "n_jobs",
                                           "total_nodes")})
-    spec8 = dataclasses.replace(spec, n=8)
+    part = dataclasses.replace(spec, n=FAN_SLICE)
     pe.LAUNCHES = 0
-    a = cuda.fan_grid(one, pool.spec, spec8, FAN_GRID_GOAL)
+    a = cuda.fan_grid(one, pool.spec, part, FAN_GRID_GOAL)
     a.end_t.cpu()
     slice_launches = pe.LAUNCHES
     t0 = time.perf_counter()
-    b = ref.fan_grid(one, pool.spec, spec8, FAN_GRID_GOAL)
+    b = ref.fan_grid(one, pool.spec, part, FAN_GRID_GOAL)
     b.end_t.cpu()
     ref_s = time.perf_counter() - t0
     if pe.LAUNCHES != slice_launches:
@@ -1862,14 +1896,15 @@ def fan_grid_phase(torch, pe, card):
                  "member_costs", "costs", "best", "cost_ci", "fan_width"):
         if not torch.equal(getattr(a, name), getattr(b, name)):
             raise SystemExit(f"[fan-grid] cuda and reference differ in "
-                             f"{name} on the S=1 x F=8 slice")
-    if not torch.equal(a.end_t[0], got.end_t[0, :8]):
-        raise SystemExit("[fan-grid] the 8-member slice is not the first 8 "
-                         "members of the 16-member fan")
+                             f"{name} on the S=1 x F={part.n} slice")
+    if not torch.equal(a.end_t[0], got.end_t[0, :part.n]):
+        raise SystemExit(f"[fan-grid] the {part.n}-member slice is not "
+                         f"the first members of the {F}-member fan")
     print(f"[fan-grid] fan_grid == replay_grid(materialize_fan) on the card "
           f"(times, deadlocks, events, member costs; tolerance: none); the "
-          f"S=1 x F=8 slice ({8 * P} forks): cuda == reference in every "
-          f"field and == the full fan's first 8 members; winners "
+          f"S=1 x F={part.n} slice ({part.n * P} forks): cuda == reference "
+          f"in every field and == the full fan's first {part.n} members; "
+          f"winners "
           f"{[pool.names[int(i)] for i in got.best]}")
 
     # block by block: block 2 under sync-debug "error", blocks 3-6 traced
@@ -1894,7 +1929,7 @@ def fan_grid_phase(torch, pe, card):
         c = blocks(c, 1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    c, first = capture_first_pass(pe, lambda: blocks(c, 1))
+    c, first = capture_pass(pe, lambda: blocks(c, 1))
     prof = traced(torch, lambda: bool(des.replay_cond(blocks(c, 4),
                                                       arrival_t)),
                   "[fan-grid]", f"blocks 4-7 of the fan grid ({4 * N} "
@@ -1908,12 +1943,11 @@ def fan_grid_phase(torch, pe, card):
           f"iterations a read), {wall * 1e6 / launches:.1f} us of wall a "
           f"step; traced: {prof['kernels'] / (4 * N):.1f} kernels an "
           f"iteration, device busy {busy_txt}; reference backend on the "
-          f"{8 * P}-fork slice {ref_s:.3f} s")
+          f"{part.n * P}-fork slice {ref_s:.3f} s")
     k1 = k1_on(torch, pe, first, "[fan-grid]")
 
-    # (f) the raced grid
-    spec32 = dataclasses.replace(spec, n=RACE_GRID["f_max"])
-    race = RaceSpec(fan=spec32, f0=RACE_GRID["f0"])
+    # (f) the raced grid up to (e)'s fan: its winners are that fan's
+    race = RaceSpec(fan=spec, f0=RACE_F0)
     pe.LAUNCHES = 0
     t0 = time.perf_counter()
     out = race_grid(scen, pool.spec, race, FAN_GRID_GOAL, engine=cuda)
@@ -1921,25 +1955,21 @@ def fan_grid_phase(torch, pe, card):
     race_launches = pe.LAUNCHES
     if race_launches == 0:
         raise SystemExit("[race-grid] race_grid never launched K1")
-    pe.LAUNCHES = 0
-    t0 = time.perf_counter()
-    full = cuda.fan_grid(scen, pool.spec, spec32, FAN_GRID_GOAL)
-    best = full.best.cpu().numpy()
-    full_s = time.perf_counter() - t0
-    full_launches = pe.LAUNCHES
+    best = got.best.cpu().numpy()
     if list(out.best) != list(best):
         raise SystemExit(f"[race-grid] winners {list(out.best)} differ from "
-                         f"the F={spec32.n} fan's {list(best)}")
-    print(f"[race-grid] race_grid F_max={spec32.n} from F0={race.f0}: "
-          f"winners == fan_grid F={spec32.n} ({S * spec32.n * P} forks); "
-          f"{out.members} members of {out.members_full} ("
+                         f"the F={F} fan's {list(best)}")
+    print(f"[race-grid] race_grid F_max={F} from F0={race.f0}: winners == "
+          f"(e)'s fan_grid F={F} ({S * F * P} forks); {out.members} members "
+          f"of {out.members_full} ("
           + ", ".join(f"[{r.lo},{r.hi}) x {len(r.active)}" for r in out.rungs)
           + f"), stopped={out.stopped}; {card}: race {race_s:.3f} s "
-          f"({race_launches} K1 launches), fan F={spec32.n} {full_s:.3f} s "
-          f"({full_launches} K1 launches)")
+          f"({race_launches} K1 launches), fan F={F} {wall:.3f} s "
+          f"({launches} K1 launches)")
     return dict(launches=launches, wall=wall, k1=k1,
-                race_launches=race_launches, race_s=race_s, full_s=full_s,
-                members=out.members, members_full=out.members_full)
+                race_launches=race_launches, race_s=race_s,
+                members=out.members, members_full=out.members_full,
+                fan_out=got, race_out=out)
 
 
 def fan_cli(device, flags):
@@ -1999,12 +2029,16 @@ def monte_carlo_phase(torch, pe, snapshot, engine):
             "race_grid": grid["race_launches"],
             "fan_race_ensemble_cli": cli_launches},
         fan_pass=fan["k1"], fan_grid_pass=grid["k1"],
-        ensemble_wall_mean_ms=statistics.mean(ens_walls) * 1e3)
+        ensemble_wall_mean_ms=statistics.mean(ens_walls) * 1e3,
+        fan_grid=(grid["fan_out"], grid["wall"]),
+        race_grid=(grid["race_out"], grid["race_s"]))
 
 
 # --------------------------------------------------------------- phase 14
 TRAIN_CFG = dict(family="wfp", strategy="cem", population=16,
-                 generations=3, objective="score", seed=0, patience=0)
+                 generations=2, objective="score", seed=0, patience=0)
+#                generations cut from 3 for time: the resume starts from
+#                the step-1 checkpoint
 TRAIN_SPLIT = (4, 2)         # training and held-out Polaris traces
 SNAP_AT = 2                  # (c): cycles before the snapshot
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -2090,16 +2124,16 @@ def grid_blocks_traced(torch, pe, engine, scen, pool_spec, tag, what,
     prof = traced(torch, lambda: bool(des.replay_cond(blocks(c, 4),
                                                       arrival_t)),
                   tag, what, "pass_kernel")
-    _, first = capture_first_pass(pe, lambda: blocks(blocks(c, 4), 1))
+    _, first = capture_pass(pe, lambda: blocks(blocks(c, 4), 1))
     return prof, k1_on(torch, pe, first, tag)
 
 
 def training_phase(torch, pe, card):
     """(b) The learner at Polaris scale (the slice's main path): CEM over
-    the wfp family, population 16, three generations on four training
+    the wfp family, population 16, two generations on four training
     and two held-out Polaris traces, checkpointed every generation; gen
     0's grid on one scenario cuda bitwise reference; a resume from the
-    step-2 checkpoint bitwise the uninterrupted run; ``trained:<dir>``
+    step-1 checkpoint bitwise the uninterrupted run; ``trained:<dir>``
     deploying the same costs as the in-memory θ."""
     import shutil
     from repro_torch.checkpoint import step_dir
@@ -2212,7 +2246,7 @@ def training_phase(torch, pe, card):
 
     part_dir = os.path.join(WORK, "train_resume")
     shutil.rmtree(part_dir, ignore_errors=True)
-    shutil.copytree(step_dir(full_dir, 2), step_dir(part_dir, 2))
+    shutil.copytree(step_dir(full_dir, 1), step_dir(part_dir, 1))
     pe.LAUNCHES = 0
     t0 = time.perf_counter()
     resumed = train(train_scen, heldout, cfg, engine=cuda,
@@ -2226,7 +2260,7 @@ def training_phase(torch, pe, card):
                          "uninterrupted one")
     if resume_launches == 0:
         raise SystemExit("[train] the resumed generation never launched K1")
-    print(f"[train] resumed from the step-2 checkpoint alone: generation 3 "
+    print(f"[train] resumed from the step-1 checkpoint alone: generation 2 "
           f"in {resume_s:.2f} s, K1 launches {resume_launches}; θ, history "
           f"and best_heldout bitwise the uninterrupted run's")
 
@@ -2393,6 +2427,455 @@ def learning_phase(torch, pe, engine):
         "trained_deploy": tr["deploy_launches"],
         "snapshot_restore_cycles": snap["launches"],
         **{f"cli_{k}": v for k, v in cli.items()}})
+
+
+# --------------------------------------------------------------- phase 15
+FLEET_SCENARIOS = 256        # (a): 256 days of phase 12's trace family
+FLEET_BLOCK = 64             # scenarios a block: 4 blocks of 2,048 forks
+FLEET_DEPTH = 2              # prefetch depth (and 0, the ablation)
+FLEET_SUB = (16, 8)          # (b): the first 16 scenarios, blocks of 8;
+#                              (a) holds them against the reference backend
+FLEET_PASS = 1000            # (a): K1 checked on this launch (0-based) of
+#                              the one-shot grid and of the stream's block 0
+FLEET_FAN_BLOCK = 4          # (c): pseudo-scenarios a block of the fan
+FLEET_RACE_BLOCK = 8         # (c): window rows a block of the race
+FLEET_FLAGS = ["--shard", "0", "--block-size", "4", "--prefetch", "2"]
+FLEET_CLI = ([], ["--fan", "8"], ["--fan", "8", "--race"])
+EXAMPLES = ("quickstart", "fleet_twin", "train_policy")
+LEGACY_RTOL = 1e-5           # (d): the legacy decide's costs against decide
+
+
+def fleet_scenarios():
+    """(a)'s grid: ``poisson_trace(1000, 560, 100.0, (1, 11), (300.0,
+    86400.0), seed=s, heavy_tail=True)`` for s in 0..255 (phase 12's
+    eight are the first), J=1024."""
+    from repro_torch.cluster.workload import poisson_trace, stack_scenarios
+    return stack_scenarios(
+        [poisson_trace(REPLAY_JOBS, POLARIS_NODES, REPLAY_GAP, (1, 11),
+                       (300.0, 86400.0), seed=s, heavy_tail=True)
+         for s in range(FLEET_SCENARIOS)],
+        POLARIS_NODES, max_jobs=POLARIS_SLOTS)
+
+
+class HostReads:
+    """Counts the replay loop's host reads (calls of ``des.replay_cond``,
+    one a ``des.REPLAY_BLOCK`` steps of each replay) while it is open."""
+
+    def __enter__(self):
+        from repro_torch.core import des
+        self.des, self.real, self.n = des, des.replay_cond, 0
+
+        def counted(c, arrival_t):
+            self.n += 1
+            return self.real(c, arrival_t)
+        des.replay_cond = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.des.replay_cond = self.real
+
+
+def differing(torch, a, b, fields, metrics=True):
+    """The fields (and metric fields) in which two outcomes differ."""
+    bad = [f for f in fields if not torch.equal(getattr(a, f),
+                                                getattr(b, f))]
+    if metrics:
+        bad += [f"metrics.{f}" for f, x in a.metrics._asdict().items()
+                if not torch.equal(x, getattr(b.metrics, f))]
+    return bad
+
+
+GRID_FIELDS = ("start_t", "end_t", "deadlocked", "events", "costs", "best")
+
+
+def fleet_grid_run(torch, pe, fn):
+    """``fn()`` from K1's count and the peak memory reset: (outcome, wall,
+    K1 launches, host reads, peak bytes, bytes already allocated at the
+    reset — earlier outcomes this phase still holds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    pe.LAUNCHES = 0
+    with HostReads() as reads:
+        t0 = time.perf_counter()
+        out = fn()
+        out.best.cpu()
+        wall = time.perf_counter() - t0
+    if pe.LAUNCHES == 0:
+        raise SystemExit("[fleet] a fleet path never launched K1")
+    return (out, wall, pe.LAUNCHES, reads.n,
+            torch.cuda.max_memory_allocated(), live)
+
+
+def fleet_stream_phase(torch, pe, card):
+    """(a) the one-shot grid of 256 Polaris days against the stream in
+    blocks of 64 at prefetch depths 2 and 0; (b) two shards of cuda:0
+    over the first 16 scenarios against the one-shot rows."""
+    from repro_torch.cluster.workload import slice_scenarios
+    from repro_torch.core.des import state_metrics
+    from repro_torch.core.engine import DrainEngine
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.state import map_state
+    from repro_torch.core.whatif import sharded_replay_grid
+    from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
+    t0 = time.perf_counter()
+    scen = fleet_scenarios()
+    make_s = time.perf_counter() - t0
+    pool = parse_pool(DRAS_POOL)
+    S, P, J = FLEET_SCENARIOS, len(pool), POLARIS_SLOTS
+    cuda = DrainEngine("cuda", device="cuda")
+    print(f"[fleet] {S} scenarios of {REPLAY_JOBS} jobs on {POLARIS_NODES} "
+          f"nodes (J={J}) x the k={P} DRAS pool = {S * P} forks "
+          f"({S * P * J:,} job slots), goal score; the traces took "
+          f"{make_s:.1f} s to make on the host")
+    (one, one_s, one_k1, one_reads, one_mem, one_live), one_pass = (
+        capture_pass(pe, lambda: fleet_grid_run(
+            torch, pe, lambda: cuda.replay_grid(scen, pool.spec, "score")),
+            at=FLEET_PASS, host=True))
+    runs = {}
+    for depth in (FLEET_DEPTH, 0):
+        run = sharded_replay_grid(make_fleet_mesh(), engine=cuda,
+                                  objective="score", block_size=FLEET_BLOCK,
+                                  prefetch_depth=depth)
+        runs[depth], block_pass = capture_pass(
+            pe, lambda: fleet_grid_run(torch, pe,
+                                       lambda: run(scen, pool.spec)),
+            at=FLEET_PASS, host=True)
+        bad = differing(torch, runs[depth][0], one, GRID_FIELDS)
+        if bad:
+            raise SystemExit(f"[fleet] the stream (blocks of {FLEET_BLOCK},"
+                             f" prefetch {depth}) differs from the "
+                             f"one-shot grid in {bad}")
+    if one.deadlocked.any() or not torch.isfinite(one.costs).all():
+        raise SystemExit("[fleet] a fork deadlocked or has no finite cost")
+    n_blk = S // FLEET_BLOCK
+    mib = lambda r: (f"peak {r[4] / 2**20:.1f} MiB ({(r[4] - r[5]) / 2**20:.1f}"
+                     f" above the {r[5] / 2**20:.1f} MiB live at its start)")
+    print(f"[fleet] streamed == one-shot on the card at prefetch "
+          f"{FLEET_DEPTH} and 0: start_t, end_t, deadlocked, events, every "
+          f"metric, costs and winners identical (tolerance: none)")
+    one_run = (one, one_s, one_k1, one_reads, one_mem, one_live)
+    print(f"[fleet] {card}: one-shot wall {one_s:.3f} s, {mib(one_run)}, "
+          f"{int(one.result.iters)} iterations, {one_k1} K1 launches, "
+          f"{one_reads} host reads; streamed ({n_blk} blocks of "
+          f"{FLEET_BLOCK * P} forks) prefetch {FLEET_DEPTH}: wall "
+          f"{runs[FLEET_DEPTH][1]:.3f} s, {mib(runs[FLEET_DEPTH])}, "
+          f"{int(runs[FLEET_DEPTH][0].result.iters)} iterations summed, "
+          f"{runs[FLEET_DEPTH][2]} K1 launches, {runs[FLEET_DEPTH][3]} host "
+          f"reads; prefetch 0: wall {runs[0][1]:.3f} s, {mib(runs[0])}, "
+          f"{runs[0][2]} K1 launches, {runs[0][3]} host reads + {n_blk} "
+          f"block syncs (each run copied launch {FLEET_PASS + 1}'s inputs "
+          f"to the host once, for the checks below)")
+    which = f"pass {FLEET_PASS + 1}"
+    k1 = dict(one_shot=k1_on(torch, pe, one_pass, "[fleet] one-shot:", which),
+              block=k1_on(torch, pe, block_pass, "[fleet] block 0:", which))
+    del one_pass, block_pass
+
+    # the stream's rows of the first 16 scenarios against the reference
+    # backend (the plain pass) on the card
+    n_sub, b_sub = FLEET_SUB
+    sub = slice_scenarios(scen, 0, n_sub)
+    stream = runs[FLEET_DEPTH][0]
+    before = pe.LAUNCHES
+    t0 = time.perf_counter()
+    ref = DrainEngine("reference", device="cuda").replay_grid(
+        sub, pool.spec, "score")
+    ref.best.cpu()
+    ref_s = time.perf_counter() - t0
+    if pe.LAUNCHES != before:
+        raise SystemExit("[fleet] the reference backend launched K1")
+    bad = [f for f in GRID_FIELDS if not torch.equal(
+        getattr(ref, f), getattr(stream, f)[:n_sub])]
+    bad += [f"metrics.{f}" for f, x in ref.metrics._asdict().items()
+            if not torch.equal(x, getattr(stream.metrics, f)[:n_sub])]
+    if bad:
+        raise SystemExit(f"[fleet] the reference backend on the first "
+                         f"{n_sub} scenarios differs from the stream's rows "
+                         f"in {bad}")
+    print(f"[fleet] the reference backend (plain pass) on the first {n_sub} "
+          f"scenarios ({n_sub * P} forks) == the stream's rows of block 0: "
+          f"times, deadlocks, events, every metric, costs and winners "
+          f"identical (tolerance: none); {ref_s:.3f} s on {card}")
+
+    # (b) two shards of cuda:0 over the first 16 scenarios, blocks of 8
+    two, two_s, two_k1, two_reads, _, _ = fleet_grid_run(
+        torch, pe, lambda: sharded_replay_grid(
+            FleetMesh(["cuda:0", "cuda:0"]), engine=cuda, objective="score",
+            block_size=b_sub)(sub, pool.spec))
+    rows = n_sub * P
+    rep = lambda x, dt: torch.as_tensor(x, dtype=dt).cuda(  # noqa: E731
+        ).repeat_interleave(P, 0)
+    alone = state_metrics(map_state(lambda x: x[:rows], one.result.state),
+                          rep(sub.valid, torch.bool),
+                          rep(sub.true_runtime, torch.float32))
+    parted = [f for f, x in alone._asdict().items()
+              if not torch.equal(x.reshape(n_sub, P),
+                                 getattr(one.metrics, f)[:n_sub])]
+    print(f"[fleet] the one-shot rows of the first {n_sub} scenarios "
+          f"({rows} of {S * P} forks) scored alone: metrics "
+          + ("identical to the full grid's" if not parted else
+             f"differ from the full grid's in {parted}")
+          + " (torch's row reduction at another row count)")
+    for f in ("start_t", "end_t", "deadlocked", "events", "costs", "best"):
+        if not torch.equal(getattr(two, f), getattr(one, f)[:n_sub]):
+            raise SystemExit(f"[fleet] two shards of cuda:0 differ from "
+                             f"the one-shot rows in {f}")
+    bad = [f for f, x in two.metrics._asdict().items()
+           if not torch.equal(x, getattr(one.metrics, f)[:n_sub])]
+    if bad:
+        raise SystemExit(f"[fleet] two shards of cuda:0 differ from the "
+                         f"one-shot rows in metrics {bad}")
+    print(f"[fleet] (b) a mesh of cuda:0 named twice (2 shards), the first "
+          f"{n_sub} scenarios in blocks of {b_sub}: == the one-shot grid's "
+          f"rows (times, deadlocks, events, metrics, costs, winners); "
+          f"{two_s:.3f} s, {two_k1} K1 launches, {two_reads} host reads "
+          f"on {card}")
+    return dict(one=one_k1, stream=runs[FLEET_DEPTH][2],
+                stream0=runs[0][2], two=two_k1, k1=k1)
+
+
+def fleet_fan_phase(torch, pe, card, fan_grid, race_grid):
+    """(c) ``sharded_fan_grid`` over phase 13 (e)'s fan, blocks of 4
+    pseudo-scenarios, against that phase's ``fan_grid``;
+    ``sharded_race_grid`` F0=4 -> 16, blocks of 8 window rows, against
+    phase 13 (f)'s ``race_grid`` (each given as (outcome, wall))."""
+    from repro_torch.cluster.workload import stack_scenarios
+    from repro_torch.core.engine import DrainEngine
+    from repro_torch.core.fan import FanSpec
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.race import RaceSpec
+    from repro_torch.core.whatif import sharded_fan_grid, sharded_race_grid
+    from repro_torch.launch.mesh import make_fleet_mesh
+    traces, _ = polaris_traces()
+    scen = stack_scenarios(traces[:FAN_GRID_SCENARIOS], POLARIS_NODES,
+                           max_jobs=POLARIS_SLOTS)
+    pool = parse_pool(DRAS_POOL)
+    spec = FanSpec(**FAN_GRID)
+    cuda = DrainEngine("cuda", device="cuda")
+    launches = {}
+
+    def counted(name, fn):
+        pe.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if pe.LAUNCHES == 0:
+            raise SystemExit(f"[fleet-fan] {name} never launched K1")
+        launches[name] = pe.LAUNCHES
+        return out, wall
+    (want, fan_s), (race_want, race_s) = fan_grid, race_grid
+    got, stream_s = counted("fleet_fan", lambda: sharded_fan_grid(
+        make_fleet_mesh(), engine=cuda, objective=FAN_GRID_GOAL, fan=spec,
+        block_size=FLEET_FAN_BLOCK)(scen, pool.spec))
+    bad = differing(torch, got, want, ("start_t", "end_t", "deadlocked",
+                                       "events", "member_costs", "costs",
+                                       "best", "cost_ci", "fan_width"))
+    if bad:
+        raise SystemExit(f"[fleet-fan] sharded_fan_grid differs from "
+                         f"fan_grid in {bad}")
+    F, P = spec.n, len(pool)
+    print(f"[fleet-fan] sharded_fan_grid (S=1 x F={F} x k={P}, blocks of "
+          f"{FLEET_FAN_BLOCK} pseudo-scenarios = {FLEET_FAN_BLOCK * P} "
+          f"forks) == phase 13 (e)'s fan_grid: times, deadlocks, events, "
+          f"metrics, member costs, costs, winners, CI and width identical; "
+          f"{card}: streamed {stream_s:.3f} s ({launches['fleet_fan']} K1 "
+          f"launches), one-shot {fan_s:.3f} s")
+    race = RaceSpec(fan=spec, f0=RACE_F0)
+    got, srace_s = counted("fleet_race", lambda: sharded_race_grid(
+        make_fleet_mesh(), engine=cuda, objective=FAN_GRID_GOAL, race=race,
+        block_size=FLEET_RACE_BLOCK)(scen, pool.spec))
+    same = (list(got.best) == list(race_want.best)
+            and [r.members for r in got.rungs] == [r.members
+                                                   for r in race_want.rungs]
+            and got.members == race_want.members
+            and list(got.keep) == list(race_want.keep))
+    if not same:
+        raise SystemExit(f"[fleet-fan] sharded_race_grid (winners "
+                         f"{list(got.best)}, {got.members} members) differs "
+                         f"from race_grid ({list(race_want.best)}, "
+                         f"{race_want.members})")
+    print(f"[fleet-fan] sharded_race_grid F0={race.f0} -> F_max="
+          f"{race.f_max}, blocks of {FLEET_RACE_BLOCK} window rows: winners"
+          f", rungs and members == phase 13 (f)'s race_grid ({got.members} "
+          f"of {got.members_full}; "
+          + ", ".join(f"[{r.lo},{r.hi}) x {len(r.active)}" for r in got.rungs)
+          + f"); {card}: streamed {srace_s:.3f} s "
+          f"({launches['fleet_race']} K1 launches), race_grid {race_s:.3f} s")
+    return launches
+
+
+def fleet_whatif_phase(torch, pe, snapshot, card):
+    """(d) ``sharded_whatif`` on phase 4's mirror, one shard and cuda:0
+    named twice, against ``decide``; ``decide_legacy_vmap`` there."""
+    from repro_torch.core.engine import DrainEngine
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.whatif import decide_legacy_vmap, sharded_whatif
+    from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
+    pool = parse_pool(DRAS_POOL)
+    cuda = DrainEngine("cuda", device="cuda")
+    want = cuda.decide(snapshot, pool.spec, "score")
+    launches, walls = 0, []
+    for mesh in (make_fleet_mesh(), FleetMesh(["cuda:0", "cuda:0"])):
+        pe.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = sharded_whatif(mesh, engine=cuda, objective="score")(
+            snapshot, pool)
+        got.costs.cpu()
+        walls.append(time.perf_counter() - t0)
+        if pe.LAUNCHES == 0:
+            raise SystemExit("[fleet-whatif] sharded_whatif never launched "
+                             "K1")
+        launches += pe.LAUNCHES
+        for f in ("policy_index", "costs", "run_mask", "deadlocked"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise SystemExit(f"[fleet-whatif] {mesh.shape['data']} "
+                                 f"shard(s): {f} differs from decide")
+    pe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    legacy = decide_legacy_vmap(snapshot, pool)
+    legacy.costs.cpu()
+    legacy_s = time.perf_counter() - t0
+    legacy_launches = pe.LAUNCHES
+    if legacy_launches == 0:
+        raise SystemExit("[fleet-whatif] decide_legacy_vmap never launched "
+                         "K1")
+    if not (int(legacy.policy_index) == int(want.policy_index)
+            and torch.equal(legacy.run_mask, want.run_mask)
+            and torch.equal(legacy.deadlocked, want.deadlocked)):
+        raise SystemExit(f"[fleet-whatif] decide_legacy_vmap picks "
+                         f"{int(legacy.policy_index)}, decide "
+                         f"{int(want.policy_index)}, or their qrun sets or "
+                         f"deadlocks differ")
+    # one scalar drain a policy scores one row at a time; decide scores
+    # the k rows together, so torch may sum a row in another order
+    if not torch.allclose(legacy.costs, want.costs, rtol=LEGACY_RTOL,
+                          atol=0.0):
+        raise SystemExit(f"[fleet-whatif] decide_legacy_vmap's costs differ "
+                         f"from decide's beyond rtol {LEGACY_RTOL}")
+    fin = torch.isfinite(want.costs)
+    rel = float(((legacy.costs - want.costs).abs()[fin]
+                 / want.costs.abs()[fin]).max()) if fin.any() else 0.0
+    print(f"[fleet-whatif] sharded_whatif on phase 4's mirror (k={len(pool)}"
+          f"), 1 shard and cuda:0 named twice: policy_index, costs, "
+          f"run_mask, deadlocked == decide (tolerance: none); "
+          f"{walls[0]:.3f} / {walls[1]:.3f} s, {launches} K1 launches; "
+          f"decide_legacy_vmap (the scalar drain once per policy, K1 its "
+          f"pass, {legacy_launches} launches): the same winner "
+          f"({pool.names[int(want.policy_index)]}), qrun set "
+          f"({int(want.run_mask.sum())} jobs) and deadlocks "
+          f"({int(want.deadlocked.sum())}); costs within rtol {LEGACY_RTOL} "
+          f"(largest relative difference {rel:.3g}, "
+          f"{int((legacy.costs != want.costs).sum())} of {len(pool)} not "
+          f"bitwise); {legacy_s:.1f} s on {card}")
+    return launches, legacy_launches
+
+
+def fleet_cli(device, flags):
+    """``twin_loop --replay-grid 8`` with ``flags`` at the CLI's grid size:
+    the table and winners, the first line cut before its mode."""
+    import contextlib
+    import io
+    from repro_torch.launch import twin_loop
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        twin_loop.main(["--replay-grid", "8", "--trace", "poisson",
+                        "--jobs", "48", "--nodes", "32", "--pool",
+                        "extended", "--device", device] + flags)
+    lines = buf.getvalue().splitlines()
+    i = next(n for n, line in enumerate(lines)
+             if line.startswith(("replay grid:", "raced grid:")))
+    return [lines[i].split(" (", 1)[0]] + lines[i + 1:], lines[i]
+
+
+def fleet_cli_phase(torch, pe):
+    """(e) each grid mode with the fleet flags on cuda and cpu against the
+    mode without them."""
+    launches = 0
+    for mode in FLEET_CLI:
+        pe.LAUNCHES = 0
+        on_cuda, line = fleet_cli("cuda", mode + FLEET_FLAGS)
+        if pe.LAUNCHES == 0:
+            raise SystemExit(f"[fleet-cli] {mode} never launched K1")
+        launches += pe.LAUNCHES
+        on_cpu, _ = fleet_cli("cpu", mode + FLEET_FLAGS)
+        plain, _ = fleet_cli("cpu", mode)
+        if not on_cuda == on_cpu == plain:
+            raise SystemExit(f"[fleet-cli] --replay-grid 8 {' '.join(mode)}"
+                             f": the fleet reports differ from each other "
+                             f"or from the one-shot's")
+        print(f"[fleet-cli] {line}")
+    print(f"[fleet-cli] twin_loop --replay-grid 8 [--fan 8 [--race]] "
+          f"{' '.join(FLEET_FLAGS)} (poisson, 48 jobs, 32 nodes, extended "
+          f"pool): cuda and cpu print the one-shot grid's table and winners;"
+          f" K1 launches {launches}")
+    return launches
+
+
+EXAMPLE_RUN = ("import time\n"
+               "from repro_torch.examples import {name} as example\n"
+               "from repro_torch.kernels import policy_eval as pe\n"
+               "t0 = time.perf_counter()\n"
+               "example.main(['--device', 'cuda'])\n"
+               "print('EXAMPLE', pe.LAUNCHES, time.perf_counter() - t0)\n")
+
+
+def examples_phase(card):
+    """(f) the three examples on cuda, each ``main`` in a process of its
+    own, all three at once: each must exit 0; its wall and K1 launches
+    (counted in its process from 0) are printed, and the wall of the
+    three together."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUN.format(name=name)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    launches = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise SystemExit(f"[examples] {name} exited "
+                                 f"{proc.returncode}: {err[-3000:]}")
+            tag, n, wall = out.strip().splitlines()[-1].split()
+            if tag != "EXAMPLE" or int(n) == 0:
+                raise SystemExit(f"[examples] {name} never launched K1")
+            launches[f"example_{name}"] = int(n)
+            last = out.strip().splitlines()[-2]
+            print(f"[examples] python -m repro_torch.examples.{name}: exit "
+                  f"0 after {float(wall):.1f} s on {card}, {n} K1 launches; "
+                  f"last line: {last[:100]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[examples] the three ran side by side in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def fleet_phase(torch, pe, snapshot, mc):
+    """Phase 15: fleet-scale block streaming, shards on one card, the
+    legacy oracle, the fleet CLI and the examples, K1 the pass of every
+    path (``mc``: phase 13's result, whose fan and race grids are the
+    one-shot side of (c)).  Returns (K1 on the fleet grids' passes, K1's
+    launches by path)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    grid = fleet_stream_phase(torch, pe, card)
+    fan = fleet_fan_phase(torch, pe, card, mc["fan_grid"], mc["race_grid"])
+    whatif, legacy = fleet_whatif_phase(torch, pe, snapshot, card)
+    cli = fleet_cli_phase(torch, pe)
+    examples = examples_phase(card)
+    print(f"[fleet] phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return grid["k1"], {
+        "fleet_one_shot": grid["one"], "fleet_stream": grid["stream"],
+        "fleet_stream_prefetch0": grid["stream0"],
+        "fleet_two_shards": grid["two"], **fan,
+        "fleet_whatif": whatif, "fleet_legacy_decide": legacy,
+        "fleet_cli": cli, **examples}
 
 
 # ------------------------------------------------- on request: --parent
@@ -2744,6 +3227,7 @@ def main() -> int:
     replay = replay_phase(torch, pe, snapshot)
     mc = monte_carlo_phase(torch, pe, snapshot, engine)
     learn = learning_phase(torch, pe, engine)
+    fleet_pass, fleet = fleet_phase(torch, pe, snapshot, mc)
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)
@@ -2760,15 +3244,17 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(K1, launches=launches + replay["launches"]
              + sum(mc["launches_by_path"].values())
-             + sum(learn["launches_by_path"].values()), **k1,
+             + sum(learn["launches_by_path"].values())
+             + sum(fleet.values()), **k1,
              library_ms=None,
              launches_by_path={"polaris_cycles": launches,
                                "polaris_replay_grid": replay["launches"],
                                **mc["launches_by_path"],
-                               **learn["launches_by_path"]},
+                               **learn["launches_by_path"], **fleet},
              replay_mean_us=replay["k1_mean_us"],
              replay_pass=replay["k1_pass"], fan_pass=mc["fan_pass"],
              fan_grid_pass=mc["fan_grid_pass"],
+             fleet_pass=fleet_pass,
              training_pass=learn["training_pass"]),
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg], **k2),

@@ -6,7 +6,8 @@ in four phases on a 32-node cluster, 5 s inter-arrival.  True runtimes
 are a fraction of the requested walltime (users overestimate, §3.2); the
 twin never sees them.  ``poisson_trace`` / ``bursty_trace`` are the
 generic family: flat Poisson arrivals and the same process under a
-sinusoidal (diurnal) rate.  ``ScenarioSet`` / ``stack_scenarios`` pad
+sinusoidal (diurnal) rate; ``arch_job_mix`` draws training, prefill and
+decode jobs of the ten model architectures over a pod fleet.  ``ScenarioSet`` / ``stack_scenarios`` pad
 and stack traces into the replay engine's scenario axis; ``read_swf`` /
 ``write_swf`` handle the Standard Workload Format.
 """
@@ -161,6 +162,47 @@ def bursty_trace(n_jobs: int, total_nodes: int, mean_gap: float,
         jobs.append(_sample_job(rng, jid, t, total_nodes, node_range,
                                 walltime_range, accuracy, heavy_tail,
                                 "bursty"))
+    return jobs
+
+
+# ----------------------------------------------------------------------
+# LM-fleet job classes: the twin as an accelerator-fleet scheduler
+# (repro_torch.examples.fleet_twin).
+# ----------------------------------------------------------------------
+
+#: pods requested per job class, per architecture scale bucket.
+_ARCH_PODS = {
+    "granite-20b": 2, "granite-3-2b": 1, "llama3.2-1b": 1,
+    "qwen2-72b": 8, "internvl2-76b": 8, "deepseek-v2-lite-16b": 2,
+    "olmoe-1b-7b": 1, "rwkv6-7b": 2, "recurrentgemma-2b": 1,
+    "whisper-small": 1,
+}
+
+
+def arch_job_mix(n_jobs: int, total_pods: int = 32, seed: int = 0,
+                 mean_gap: float = 30.0,
+                 rng: Optional[np.random.Generator] = None) -> List[JobSpec]:
+    """Jobs for an accelerator fleet: training jobs (long, many pods),
+    prefill batches (short, few pods), decode services (medium).  Pod
+    counts come from each architecture's footprint (``_ARCH_PODS``)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
+    arches = list(_ARCH_PODS)
+    classes = (
+        ("train", 4.0, (1800.0, 7200.0)),
+        ("prefill", 1.0, (120.0, 600.0)),
+        ("decode", 2.0, (600.0, 1800.0)),
+    )
+    jobs: List[JobSpec] = []
+    t = 0.0
+    for jid in range(n_jobs):
+        t += float(rng.exponential(mean_gap))
+        arch = arches[int(rng.integers(len(arches)))]
+        cname, scale, wt = classes[int(rng.integers(len(classes)))]
+        pods = min(max(1, int(_ARCH_PODS[arch] * scale)), total_pods)
+        est = float(rng.uniform(*wt))
+        acc = float(rng.uniform(0.4, 1.0))
+        jobs.append(JobSpec(jid, t, pods, est, max(1.0, est * acc),
+                            tag=f"{arch}:{cname}"))
     return jobs
 
 

@@ -17,7 +17,10 @@ from repro_torch.core.state import (DONE, INVALID, QUEUED, RUNNING, JobTable,
 from repro_torch.core.race import (RaceOutcome, RaceSpec, decide_race,
                                    normalize_race, race_grid)
 from repro_torch.core.twin import SchedTwin
-from repro_torch.core.whatif import decide, decide_ensemble
+from repro_torch.core.whatif import (decide, decide_ensemble,
+                                     decide_legacy_vmap, pool_array,
+                                     sharded_fan_grid, sharded_race_grid,
+                                     sharded_replay_grid, sharded_whatif)
 
 __all__ = [
     "PASS_BACKENDS", "Decision", "DrainEngine", "register_backend",
@@ -33,4 +36,6 @@ __all__ = [
     "policy_name", "spec_rows", "theta_pool",
     "DONE", "INVALID", "QUEUED", "RUNNING", "JobTable", "SimState",
     "empty_state", "SchedTwin", "decide", "decide_ensemble",
+    "decide_legacy_vmap", "pool_array", "sharded_whatif",
+    "sharded_replay_grid", "sharded_fan_grid", "sharded_race_grid",
 ]

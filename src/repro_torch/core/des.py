@@ -31,7 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.backfill import schedule_pass
+from repro_torch.core.backfill import priority_order, schedule_pass
 from repro_torch.core.state import DONE, QUEUED, RUNNING, SimState, map_state
 
 
@@ -65,8 +65,12 @@ def _advance(st: SimState, active: torch.Tensor, dead: torch.Tensor):
     return st, dead
 
 
-def simulate_to_drain(state: SimState, policy) -> DrainResult:
-    """Scalar oracle: drain one fork under one policy."""
+def simulate_to_drain(state: SimState, policy,
+                      pass_fn: Optional["BatchedPassFn"] = None
+                      ) -> DrainResult:
+    """Scalar oracle: drain one fork under one policy.  ``pass_fn`` (a
+    batched pass, as an engine backend gives it, run at k=1 with the full
+    rank bound) replaces the plain pass; it starts the same jobs."""
     max_iters = state.jobs.capacity + 1
     dev = state.now.device
     st = state
@@ -75,10 +79,16 @@ def simulate_to_drain(state: SimState, policy) -> DrainResult:
     it = 0
     while (it < max_iters and not bool(dead)
            and bool((st.jobs.state == QUEUED).any())):
-        res = schedule_pass(st, policy)
-        st = res.state
+        if pass_fn is None:
+            res = schedule_pass(st, policy)
+            st, started = res.state, res.started
+        else:
+            one = map_state(lambda x: x[None], st)
+            started = pass_fn(one, priority_order(one, policy), None)
+            st = map_state(lambda x: x[0], apply_starts(one, started))
+            started = started[0]
         if it == 0:
-            first = res.started
+            first = started
         st, dead = _advance(st, torch.ones((), dtype=torch.bool,
                                            device=dev), dead)
         it += 1

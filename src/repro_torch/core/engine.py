@@ -31,8 +31,11 @@ key), ``decide_fan`` (f = φ·k + p, the ``fan.FanSpec`` perturbations),
 ``fan_grid``/``fan_window_grid`` (f = (s·F + φ)·P + p, the fan expanded
 on the device from the base scenarios) and the races over them
 (``core/race.py``).  Every fork of them runs the same pass backend, so
-on ``cuda`` each is K1 at k = F·P or S·F·P.  The sharded streamers (A8)
-and θ training (A9) are not ported yet.
+on ``cuda`` each is K1 at k = F·P or S·F·P.  The fleet entry points
+(``core/whatif.py``'s ``sharded_*``) split these grids into fixed-shape
+blocks and shards over a ``launch.mesh.FleetMesh`` and run each piece
+through ``replay_run``; ``shard_local_plan`` gives a shard its hoist
+plan.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from repro_torch.core.objective import (DEFAULT_OBJECTIVE, Objective,
 from repro_torch.core.policies import PolicySpec, time_invariant_mask
 from repro_torch.core.state import (QUEUED, TIME_NONE, JobTable, SimState,
                                     map_state)
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, upload
 from repro_torch.kernels import policy_eval as _pe
 
 logger = logging.getLogger(__name__)
@@ -228,7 +231,26 @@ def hoist_plan(pool: EnginePool, enabled: bool = True) -> HoistPlan:
     return tuple(bool(b) for b in mask)
 
 
-def _index_pool(pool: EnginePool, idx: torch.Tensor) -> EnginePool:
+def shard_local_plan(plan: HoistPlan, n_shards: int) -> HoistPlan:
+    """A full-pool hoist plan cut for shards that each see one
+    contiguous chunk of the fork axis: the common chunk when every
+    shard's chunk is the same (a replay grid's plan is periodic in P, so
+    its chunks always agree), else None — per-event sorting for all
+    forks, which gives the same bits."""
+    if plan is None or n_shards <= 1:
+        return plan
+    k = len(plan)
+    if k % n_shards:
+        return None
+    chunk = k // n_shards
+    first = plan[:chunk]
+    for i in range(1, n_shards):
+        if plan[i * chunk:(i + 1) * chunk] != first:
+            return None
+    return first if any(first) else None
+
+
+def _index_pool(pool: EnginePool, idx) -> EnginePool:
     if isinstance(pool, PolicySpec):
         return PolicySpec(pool.family[idx], pool.theta[idx])
     return pool[idx]
@@ -249,8 +271,8 @@ def _compact_queued_first(order: torch.Tensor,
 def hoisted_orders(states0: SimState, pool: EnginePool, plan: HoistPlan,
                    ever_queued: torch.Tensor) -> torch.Tensor:
     """The (n_ti, J) static orders of ``plan``'s time-invariant forks."""
-    ti_idx = torch.as_tensor(np.nonzero(np.asarray(plan, dtype=bool))[0],
-                             device=ever_queued.device)
+    ti_idx = upload(np.nonzero(np.asarray(plan, dtype=bool))[0],
+                    ever_queued.device)
     states_ti = map_state(lambda x: x[ti_idx], states0)
     return static_priority_order(states_ti, _index_pool(pool, ti_idx),
                                  ever_queued[ti_idx])
@@ -266,18 +288,18 @@ def make_order_fn(states0: SimState, pool: EnginePool, plan: HoistPlan,
         return lambda st: batched_priority_order(st, pool)
     dev = ever_queued.device
     plan_arr = np.asarray(plan, dtype=bool)
-    ti_idx = torch.as_tensor(np.nonzero(plan_arr)[0], device=dev)
+    ti_idx = upload(np.nonzero(plan_arr)[0], dev)
     hoisted = hoisted_orders(states0, pool, plan, ever_queued)
 
     if plan_arr.all():
         return lambda st: _compact_queued_first(hoisted,
                                                 st.jobs.state == QUEUED)
 
-    tv_idx = torch.as_tensor(np.nonzero(~plan_arr)[0], device=dev)
+    tv_idx = upload(np.nonzero(~plan_arr)[0], dev)
     pool_tv = _index_pool(pool, tv_idx)
     perm = np.concatenate([np.nonzero(plan_arr)[0],
                            np.nonzero(~plan_arr)[0]])
-    inv = torch.as_tensor(np.argsort(perm), device=dev)
+    inv = upload(np.argsort(perm), dev)
 
     def order_fn(st: SimState) -> torch.Tensor:
         compacted = _compact_queued_first(
@@ -531,8 +553,15 @@ def _decide_impl(engine: DrainEngine, state: SimState, pool: EnginePool,
                  objective: Objective = DEFAULT_OBJECTIVE,
                  plan: HoistPlan = None) -> Decision:
     k = pool_size(pool)
-    eval_mask = state.jobs.state == QUEUED
     res = _drain_impl(engine, broadcast_state(state, k), pool, plan)
+    return select_decision(res, state.jobs.state == QUEUED, objective)
+
+
+def select_decision(res: DrainResult, eval_mask: torch.Tensor,
+                    objective: Objective) -> Decision:
+    """Score the k drained forks of ``res`` over ``eval_mask`` (the
+    jobs queued at decision time), select the goal's argmin and take the
+    winner's first-event starts."""
     metrics = state_metrics(res.state, eval_mask)
     costs = objective.costs(metrics)
     costs = torch.where(res.deadlocked, torch.inf, costs)
@@ -717,19 +746,23 @@ def _assemble_replay_inputs(submit, nodes, est, true_rt, valid, totals,
 _SCENARIO_ARRAY_CACHE: Dict[Tuple[int, str], Tuple] = {}
 
 
+def scenario_arrays(scenarios, device: torch.device) -> Tuple:
+    """The six scenario arrays of a ``ScenarioSet``-shaped object on
+    ``device``, uncached (each upload waits for nothing on a card)."""
+    return (upload(scenarios.submit_t, device, torch.float32),
+            upload(scenarios.nodes, device, torch.int32),
+            upload(scenarios.est_runtime, device, torch.float32),
+            upload(scenarios.true_runtime, device, torch.float32),
+            upload(scenarios.valid, device, torch.bool),
+            upload(scenarios.total_nodes, device, torch.int32))
+
+
 def _scenario_arrays(scenarios, device: torch.device) -> Tuple:
     key = (id(scenarios), str(device))
     hit = _SCENARIO_ARRAY_CACHE.get(key)
     if hit is not None:
         return hit
-    cvt = lambda x, dt: torch.tensor(                      # noqa: E731
-        np.asarray(x), dtype=dt, device=device)
-    arrs = (cvt(scenarios.submit_t, torch.float32),
-            cvt(scenarios.nodes, torch.int32),
-            cvt(scenarios.est_runtime, torch.float32),
-            cvt(scenarios.true_runtime, torch.float32),
-            cvt(scenarios.valid, torch.bool),
-            cvt(scenarios.total_nodes, torch.int32))
+    arrs = scenario_arrays(scenarios, device)
     try:
         weakref.finalize(scenarios, _SCENARIO_ARRAY_CACHE.pop, key, None)
     except TypeError:
@@ -792,18 +825,26 @@ def fan_select(objective: ObjectiveLike, metrics: DrainMetrics,
     return member, costs, torch.argmin(costs, dim=-1), ci, width
 
 
-def _replay_impl(engine: DrainEngine, states: SimState,
-                 arrival_t: torch.Tensor, true_rt: torch.Tensor,
-                 pool: EnginePool, valid: torch.Tensor,
-                 plan: HoistPlan = None):
+def replay_run(engine: DrainEngine, states: SimState,
+               arrival_t: torch.Tensor, true_rt: torch.Tensor,
+               pool: EnginePool, plan: HoistPlan = None) -> ReplayResult:
+    """The batched replay of prepared inputs on their device, under
+    ``engine``'s pass backend and knobs."""
     # every slot with a finite arrival will be queued at some point (plus
     # any slot already queued at entry): the hoist domain
     ever_queued = torch.isfinite(arrival_t) | (states.jobs.state == QUEUED)
     order_fn = make_order_fn(states, pool, plan, ever_queued=ever_queued)
-    res = simulate_replay_batched(
+    return simulate_replay_batched(
         states, arrival_t, true_rt, order_fn, engine.pass_fn(),
         dynamic_bounds=engine.dynamic_bounds,
         elide_empty=engine.elide_empty)
+
+
+def _replay_impl(engine: DrainEngine, states: SimState,
+                 arrival_t: torch.Tensor, true_rt: torch.Tensor,
+                 pool: EnginePool, valid: torch.Tensor,
+                 plan: HoistPlan = None):
+    res = replay_run(engine, states, arrival_t, true_rt, pool, plan)
     return res, state_metrics(res.state, valid, true_rt)
 
 

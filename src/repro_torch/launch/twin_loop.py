@@ -8,6 +8,8 @@
         --pool "extended,wfp:a=1..5x5:tau=600..7200x5"     # k=32 DRAS sweep
     python -m repro_torch.launch.twin_loop --replay-grid 8 \\
         --trace poisson --jobs 48 --pool extended          # S x P grid
+    python -m repro_torch.launch.twin_loop --replay-grid 1024 \\
+        --shard 0 --block-size 128 --prefetch 2            # fleet grid
     python -m repro_torch.launch.twin_loop --fan 64 --fan-noise 0.3 \\
         --objective "p95:avg_wait"     # Monte-Carlo fan, tail objective
     python -m repro_torch.launch.twin_loop --fan 64 --race --budget-ms 500
@@ -43,10 +45,15 @@ the latest snapshot with the same flags.  ``--train G`` runs the policy
 learner (``repro_torch.learn``) for G generations on a deterministic
 scenario split instead of the co-simulation, checkpoints to
 ``--train-dir`` and scores the incumbent against ``--pool`` on the
-held-out scenarios; ``--pool trained:<dir>`` deploys it.  ``--device``
-(default ``cuda``) picks where the engine runs; ``--backend auto`` takes
-the CUDA kernel on ``cuda`` and the plain pass on ``cpu``.  The sharded
-or block-streamed grid is not ported yet and is rejected.
+held-out scenarios; ``--pool trained:<dir>`` deploys it.  ``--shard N``
+(0: every local device), ``--block-size B`` and ``--prefetch D`` run a
+``--replay-grid`` (fan or race too) through the fleet engine
+(``core.whatif.sharded_*``): the scenario axis split over N shards and
+streamed in blocks of B, the next block's ingest D blocks ahead on a
+host thread; the grid is the same.  ``--device`` (default ``cuda``)
+picks where the engine runs (with ``cpu``, ``--shard N`` runs N shards
+on the host); ``--backend auto`` takes the CUDA kernel on ``cuda`` and
+the plain pass on ``cpu``.
 """
 from __future__ import annotations
 
@@ -72,11 +79,9 @@ from repro_torch.core.objective import Objective, validate_objective
 from repro_torch.core.policies import parse_pool
 from repro_torch.core.race import RaceSpec, race_grid
 from repro_torch.core.twin import SchedTwin
-
-#: Flags of the reference CLI whose modes are not ported yet, with the
-#: ROADMAP item that brings each.
-_UNPORTED = {"shard": "--shard (A8)", "block_size": "--block-size (A8)",
-             "prefetch": "--prefetch (A8)"}
+from repro_torch.core.whatif import (sharded_fan_grid, sharded_race_grid,
+                                     sharded_replay_grid)
+from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -181,12 +186,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint directory for the trained policy "
                          "(deploy with --pool trained:DIR); empty trains "
                          "in memory only")
-    # reference modes not ported yet: accepted only to be rejected
-    ap.add_argument("--shard", type=int, default=1, help=argparse.SUPPRESS)
-    ap.add_argument("--block-size", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--prefetch", type=int, default=2,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--shard", type=int, default=1, metavar="N",
+                    help="shard the --replay-grid scenario axis over N "
+                         "devices (0: all local devices; with --device cpu "
+                         "N host shards) via the fleet engine "
+                         "(whatif.sharded_replay_grid)")
+    ap.add_argument("--block-size", type=int, default=0, metavar="B",
+                    help="stream the --replay-grid in blocks of B "
+                         "scenarios (0: one shot); bounds device memory "
+                         "at fleet scale")
+    ap.add_argument("--prefetch", type=int, default=2, metavar="D",
+                    help="host-side ingestion lookahead for block "
+                         "streaming (0: ingest inline, no overlap)")
     return ap
 
 
@@ -363,18 +374,39 @@ def _host(t):
     return t.detach().cpu().numpy()
 
 
+def fleet_mesh(args) -> Optional[FleetMesh]:
+    """The mesh of --shard/--block-size (None: the one-shot grid).  On
+    ``cuda`` the first N local cards (0: every one); on ``cpu`` N host
+    shards (0: one)."""
+    if args.shard == 1 and not args.block_size:
+        return None
+    if args.device == "cpu":
+        return FleetMesh(["cpu"] * max(args.shard, 1))
+    return make_fleet_mesh(None if args.shard == 0 else args.shard)
+
+
 def raced_grid(args, engine: DrainEngine, goal: Objective, pool,
                scen) -> None:
     """--replay-grid --race: the raced S × F × P grid.  Eliminated
     policies never reach full fidelity, so the report is the race ledger
     (rungs, members, separation), not the per-policy metric table."""
     race = make_race(args)
+    mesh = fleet_mesh(args)
     t0 = time.perf_counter()
-    out = race_grid(scen, pool.spec, race, goal, engine=engine)
+    if mesh is not None:
+        out = sharded_race_grid(mesh, engine=engine, objective=goal,
+                                race=race,
+                                block_size=args.block_size or None)(
+            scen, pool.spec)
+        mode = (f"{mesh.shape['data']} shard(s), "
+                f"block={args.block_size or 'whole rung'}")
+    else:
+        out = race_grid(scen, pool.spec, race, goal, engine=engine)
+        mode = "one device per rung"
     wall = time.perf_counter() - t0
     S = int(out.costs.shape[0])
     print(f"raced grid: S={S} scenarios x F_max={race.f_max} x "
-          f"P={len(pool)} policies (one device per rung) in {wall:.2f}s")
+          f"P={len(pool)} policies ({mode}) in {wall:.2f}s")
     print(f"members: {out.members} of {out.members_full} fixed-F "
           f"({out.members_full / max(out.members, 1):.1f}x reduction), "
           f"{len(out.rungs)} rungs, stopped={out.stopped}")
@@ -403,9 +435,26 @@ def replay_grid(args, engine: DrainEngine, goal: Objective) -> None:
     if args.race:
         return raced_grid(args, engine, cfg.make_objective(), pool, scen)
     fan = make_fan(args)
+    mesh = fleet_mesh(args)
     prune_info = None
     t0 = time.perf_counter()
-    if fan is not None and args.prune:
+    if mesh is not None:
+        # the fleet engine: the scenario axis split over the mesh and
+        # streamed in fixed-size blocks (DESIGN.md §§9-10)
+        if fan is not None:
+            run = sharded_fan_grid(mesh, engine=engine,
+                                   objective=cfg.make_objective(), fan=fan,
+                                   block_size=args.block_size or None)
+        else:
+            run = sharded_replay_grid(mesh, engine=engine,
+                                      objective=cfg.make_objective(),
+                                      block_size=args.block_size or None,
+                                      prefetch_depth=args.prefetch)
+        out = run(scen, pool.spec)
+        mode = (f"{mesh.shape['data']} shard(s), "
+                f"block={args.block_size or 'whole set'}, "
+                f"prefetch={args.prefetch}")
+    elif fan is not None and args.prune:
         out, prune_info = pruned_fan_grid(scen, pool.spec, fan,
                                           cfg.make_objective(),
                                           engine=engine)
@@ -508,11 +557,10 @@ def train_mode(args, engine: DrainEngine, goal: Objective,
 
 
 def check_flags(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse the modes not ported yet (each names its ROADMAP item),
-    then the reference's flag combinations that apply here."""
-    for dest, flag in _UNPORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.error(f"{flag} is not yet ported to repro_torch")
+    """Refuse the reference's flag combinations that do not apply."""
+    if (args.shard != 1 or args.block_size or args.prefetch != 2) \
+            and not args.replay_grid:
+        ap.error("--shard/--block-size/--prefetch apply to --replay-grid")
     if args.replay_grid and (args.failures or args.ensemble > 1):
         ap.error("--replay-grid evaluates static baselines; --failures "
                  "and --ensemble do not apply (run the co-simulation "

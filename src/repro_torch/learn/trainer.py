@@ -133,7 +133,8 @@ def train(train_scenarios, heldout_scenarios, config: TrainConfig, *,
     """Run the ES/CEM loop; returns the held-out incumbent.
 
     ``eval_fn(scenarios, pool_spec) -> (S, P) costs`` overrides the
-    generation evaluator (the hook a block-streamed evaluator will use);
+    generation evaluator (e.g. ``whatif.sharded_generation_costs``, the
+    block-streamed one, which gives the same θ bitwise);
     the default is the one-shot ``engine.generation_costs`` with
     ``config.fan`` riding along, on ``engine`` or else a
     ``DrainEngine`` on ``device``.

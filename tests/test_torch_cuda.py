@@ -88,7 +88,19 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   snapshot, restored into a fresh ``cuda`` twin and run to the end
   makes the uninterrupted run's decisions (an ensemble twin, so the key
   chain rides the snapshot).
+* The fleet engine on the card: ``sharded_replay_grid`` streamed in
+  blocks of 2 and 3 scenarios, and on two shards of ``cuda:0``, against
+  the one-shot ``replay_grid`` (every field, metrics included);
+  ``sharded_whatif`` and ``sharded_fan_grid`` on two shards against
+  ``decide`` and ``fan_grid``; K1 launched by each.  A stream under
+  ``set_sync_debug_mode("warn")`` synchronises exactly once per read of
+  the replay loop's condition (one a ``des.REPLAY_BLOCK`` steps of each
+  piece): its uploads, concatenation, metrics and selection wait for
+  nothing.  ``make_fleet_mesh`` takes the local cards and refuses other
+  counts; a mesh naming a card past the last raises.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -97,8 +109,12 @@ from repro_torch.cluster import workload
 from repro_torch.core import des
 from repro_torch.core.engine import (DrainEngine, make_order_fn,
                                      replay_inputs)
+from repro_torch.core.fan import FanSpec
 from repro_torch.core.policies import parse_pool
+from repro_torch.core.whatif import (sharded_fan_grid, sharded_replay_grid,
+                                     sharded_whatif)
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
 from repro_torch.kernels import policy_eval as pe
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
@@ -938,3 +954,110 @@ def test_twin_snapshot_restore_on_the_card(tmp_path):
     em.run(on_event=pump, on_quiesce=lambda: holder["twin"].flush())
     assert holder["twin"] is not twin
     assert decisions(holder["twin"]) == ref
+
+
+def _fleet_grid():
+    return workload.stack_scenarios(
+        [workload.bursty_trace(24, 16, 4.0 + s, (1, 12), (30.0, 400.0),
+                               seed=s) for s in range(5)], 16, max_jobs=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices,block", [(("cuda:0",), 2),
+                                           (("cuda:0",), 3),
+                                           (("cuda:0", "cuda:0"), 2)],
+                         ids=["b2", "b3", "two_shards_b2"])
+def test_fleet_stream_matches_one_shot_on_the_card(devices, block):
+    _card()
+    scen = _fleet_grid()
+    pool = parse_pool("extended,wfp:a=1..3x3").spec
+    engine = DrainEngine("cuda", device="cuda")
+    want = engine.replay_grid(scen, pool)
+    pe.LAUNCHES = 0
+    got = sharded_replay_grid(FleetMesh(devices), engine=engine,
+                              block_size=block)(scen, pool)
+    torch.cuda.synchronize()
+    assert pe.LAUNCHES > 0
+    for name in ("start_t", "end_t", "deadlocked", "events", "costs",
+                 "best"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name, x in got.metrics._asdict().items():
+        assert torch.equal(x, getattr(want.metrics, name)), name
+
+
+@pytest.mark.cuda
+def test_fleet_whatif_and_fan_on_two_shards_of_the_card():
+    _card()
+    from repro_torch.core.state import empty_state
+    from repro_torch.core import sync
+    from repro_torch.core.events import Event, EventKind
+    engine = DrainEngine("cuda", device="cuda")
+    mesh = FleetMesh(["cuda:0", "cuda:0"])
+    st = empty_state(64, 16, device="cpu")
+    for j in workload.poisson_trace(40, 16, 5.0, (1, 12), (60.0, 900.0),
+                                    seed=3):
+        st, _ = sync.apply_event(st, Event(
+            EventKind.QUEUEJOB, j.submit_t, j.job_id,
+            {"nodes": float(j.nodes), "est_runtime": float(j.est_runtime)}))
+    pool = parse_pool("extended,wfp:a=1..3x3")     # k=10
+    pe.LAUNCHES = 0
+    got = sharded_whatif(mesh, engine=engine)(st, pool)
+    assert pe.LAUNCHES > 0
+    want = engine.decide(st, pool.spec)
+    for name in ("policy_index", "costs", "run_mask", "deadlocked"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    scen = workload.stack_scenarios(
+        [workload.poisson_trace(20, 16, 6.0, (1, 12), (30.0, 400.0),
+                                seed=s) for s in range(2)], 16)
+    spec = FanSpec(n=4, runtime_noise=0.3, failure_prob=0.2)
+    want = engine.fan_grid(scen, pool.spec, spec, "cvar:0.9:score")
+    pe.LAUNCHES = 0
+    got = sharded_fan_grid(mesh, engine=engine, objective="cvar:0.9:score",
+                           fan=spec, block_size=6)(scen, pool)
+    assert pe.LAUNCHES > 0
+    for name in ("start_t", "end_t", "deadlocked", "events",
+                 "member_costs", "costs", "best", "cost_ci", "fan_width"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_fleet_stream_reads_only_in_the_replay_loop(monkeypatch):
+    _card()
+    scen = _fleet_grid()
+    pool = parse_pool("extended,wfp:a=1..3x3").spec
+    run = sharded_replay_grid(FleetMesh(["cuda:0", "cuda:0"]),
+                              engine=DrainEngine("cuda", device="cuda"),
+                              block_size=2, prefetch_depth=2)
+    run(scen, pool)                              # loads K1
+    torch.cuda.synchronize()
+    reads = []
+    cond = des.replay_cond
+    monkeypatch.setattr(des, "replay_cond",
+                        lambda c, a: (reads.append(1), cond(c, a))[1])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run(scen, pool)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == len(reads) > 0
+    assert int(out.result.iters) > 0
+
+
+@pytest.mark.cuda
+def test_make_fleet_mesh_on_the_card():
+    _card()
+    n = torch.cuda.device_count()
+    mesh = make_fleet_mesh()
+    assert mesh.shape == {"data": n, "model": 1}
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(n))
+    assert make_fleet_mesh(1).devices == (torch.device("cuda", 0),)
+    for bad in (0, n + 1):
+        with pytest.raises(ValueError, match="outside"):
+            make_fleet_mesh(bad)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetMesh([f"cuda:{n}"])
+    assert FleetMesh(["cuda", "cuda"]).devices == (
+        torch.device("cuda", torch.cuda.current_device()),) * 2

@@ -14,7 +14,10 @@
   ``pruned_fan_grid``, ``materialize_fan``, ``SchedTwin(fan=/race=/
   ensemble=)``, ``twin_loop --fan/--race/--ensemble/--prune``) too, and
   so do the learner (``train``), ``CheckpointManager.restore`` and
-  ``twin_loop --train/--chaos/--snapshot-dir``.
+  ``twin_loop --train/--chaos/--snapshot-dir``, and the fleet engine
+  (``make_fleet_mesh``, a ``FleetMesh`` naming ``cuda``, every
+  ``whatif.sharded_*`` entry, ``decide_legacy_vmap``, ``twin_loop
+  --shard/--block-size/--prefetch``) and the three examples.
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -233,6 +236,56 @@ def test_serving_entry_points_raise_for_cuda_without_a_card():
         "init_model": lambda: api.init_model(cfg),
         "init_caches": lambda: api.init_caches(cfg, 2, 16),
         "LM": lambda: LM(cfg),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_fleet_entry_points_raise_for_cuda_without_a_card():
+    """The fleet mesh, every sharded entry, the legacy oracle, the CLI's
+    fleet flags and the three examples: asked for ``cuda`` (their
+    default) without a card, each raises; none goes on on the CPU."""
+    _no_card()
+    from repro_torch.examples import fleet_twin, quickstart, train_policy
+    from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
+    trace = poisson_trace(4, 8, 8.0, (1, 8), (30.0, 90.0), seed=0)
+    scen = make_scenario(trace, 8)
+    cpu_mesh = FleetMesh(["cpu"])
+    on_card = DrainEngine
+    grid = ["--replay-grid", "2", "--trace", "poisson", "--jobs", "4",
+            "--nodes", "8"]
+    calls = {
+        "make_fleet_mesh": lambda: make_fleet_mesh(),
+        "make_fleet_mesh(1)": lambda: make_fleet_mesh(1),
+        "FleetMesh(cuda)": lambda: FleetMesh(["cuda"]),
+        "FleetMesh(cpu, cuda:0)": lambda: FleetMesh(["cpu", "cuda:0"]),
+        "sharded_whatif": lambda: whatif.sharded_whatif(make_fleet_mesh()),
+        "sharded_whatif(engine)": lambda: whatif.sharded_whatif(
+            cpu_mesh, engine=on_card())(_cpu_state(), "paper"),
+        "sharded_replay_grid": lambda: whatif.sharded_replay_grid(
+            make_fleet_mesh()),
+        "sharded_replay_grid(engine)": lambda: whatif.sharded_replay_grid(
+            cpu_mesh, engine=on_card())(scen, "paper"),
+        "sharded_fan_grid": lambda: whatif.sharded_fan_grid(
+            make_fleet_mesh(), fan=4),
+        "sharded_generation_costs": lambda: whatif.sharded_generation_costs(
+            make_fleet_mesh()),
+        "sharded_race_grid": lambda: whatif.sharded_race_grid(
+            make_fleet_mesh(), race=4),
+        "decide_legacy_vmap": lambda: whatif.decide_legacy_vmap(
+            _cpu_state(), "paper"),
+        "twin_loop.main --shard 0": lambda: twin_loop.main(
+            grid + ["--shard", "0"]),
+        "twin_loop.main --block-size": lambda: twin_loop.main(
+            grid + ["--block-size", "1"]),
+        "twin_loop.main --prefetch": lambda: twin_loop.main(
+            grid + ["--block-size", "1", "--prefetch", "0"]),
+        "twin_loop.main --fan --race --shard": lambda: twin_loop.main(
+            grid + ["--fan", "4", "--race", "--shard", "2"]),
+        "quickstart": lambda: quickstart.main([]),
+        "fleet_twin": lambda: fleet_twin.main([]),
+        "train_policy": lambda: train_policy.main([]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):

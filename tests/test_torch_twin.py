@@ -148,35 +148,46 @@ def _cosim_table(text):
                                   ["--snapshot-dir", "x"]])
 def test_twin_loop_rejects_unported_modes(flag, capsys, monkeypatch,
                                           tmp_path):
-    """The modes not ported yet refuse, naming their ROADMAP item; the
-    fan, race, ensemble, training, chaos and snapshot modes run on the
-    CPU and print the reference CLI's report (``--backend reference``)
-    line for line: the metric table, the what-if breakdown, the policy
-    mix, the fan confidence and race lines, resilience, bus health and
-    the chaos counts, or the trainer's generations and held-out board
-    (wall times aside)."""
-    if flag in _PORTED_MODES:
-        port_flag = [str(tmp_path / "t") if f == "x" else f for f in flag]
-        ref_flag = [str(tmp_path / "j") if f == "x" else f for f in flag]
-        tloop.main(ARGS + ["--device", "cpu"] + port_flag)
-        port = capsys.readouterr().out
-        monkeypatch.setattr(sys, "argv", ["twin_loop", "--no-compile-cache",
-                                          "--backend", "reference"]
-                            + ARGS + ref_flag)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            jloop.main()
-        assert _cosim_table(port) == _cosim_table(buf.getvalue())
-        assert ("fan confidence" in port) == (
-            "--fan" in flag or "--ensemble" in flag)
-        assert ("race:" in port) == ("--race" in flag)
-        assert ("chaos injected:" in port) == ("--chaos" in flag)
-        assert ("<- trained" in port) == ("--train" in flag)
+    """No mode of the reference CLI is refused any more: the fan, race,
+    ensemble, training, chaos and snapshot modes run on the CPU and print
+    the reference CLI's report (``--backend reference``) line for line:
+    the metric table, the what-if breakdown, the policy mix, the fan
+    confidence and race lines, resilience, bus health and the chaos
+    counts, or the trainer's generations and held-out board (wall times
+    aside).  ``--replay-grid 4 --shard 2`` runs the sharded grid on two
+    host shards and prints the reference's one-shot grid table (its own
+    sharded entry fails on this jax), the first line naming the shards
+    in place of "one device computation"."""
+    port_flag = [str(tmp_path / "t") if f == "x" else f for f in flag]
+    ref_flag = [str(tmp_path / "j") if f == "x" else f for f in flag]
+    fleet = flag not in _PORTED_MODES
+    if fleet:
+        ref_flag = ref_flag[:2]
+    tloop.main(ARGS + ["--device", "cpu"] + port_flag)
+    port = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["twin_loop", "--no-compile-cache",
+                                      "--backend", "reference"]
+                        + ARGS + ref_flag)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jloop.main()
+    want = _cosim_table(buf.getvalue())
+    if fleet:
+        want = [line.replace("one device computation",
+                             "2 shard(s), block=whole set, prefetch=2")
+                for line in want]
+        got = [line.rsplit(" in ", 1)[0] if line.startswith("replay grid:")
+               else line for line in _cosim_table(port)]
+        assert got == [line.rsplit(" in ", 1)[0]
+                       if line.startswith("replay grid:") else line
+                       for line in want]
         return
-    with pytest.raises(SystemExit) as exc:
-        tloop.main(ARGS + ["--device", "cpu"] + flag)
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert _cosim_table(port) == want
+    assert ("fan confidence" in port) == (
+        "--fan" in flag or "--ensemble" in flag)
+    assert ("race:" in port) == ("--race" in flag)
+    assert ("chaos injected:" in port) == ("--chaos" in flag)
+    assert ("<- trained" in port) == ("--train" in flag)
 
 
 def _mirror_equal(ts, js, ctx):
