@@ -150,7 +150,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      process of its own, side by side: each exits 0; its wall and K1
      launches.  Each path runs with K1's count set to 0
      before it and read after; a path that never launched K1 fails the
-     phase.
+     phase;
+ 16. the moe, vlm and encdec families at published widths (random bf16
+     weights, seed 0), K4 in their prefills, each model freed before the
+     next: (a) olmoe-1b-7b through ``ServingEngine`` as phases 9-11 (4
+     requests of 128-1024 tokens, 2 slots, max_seq 1280, 8 new tokens;
+     K4 16 launches a prefill, none a decode step), then its two MoE
+     dispatches on the hidden states a 1024-token prefill hands layer
+     0's MoE (``moe_dropped`` and aux terms equal, GShard within 3% of
+     gather with C17's summed gates, the times); (b)
+     deepseek-v2-lite-16b the same way (MLA prefill runs the plain
+     attention: K4 0 launches), then MLA's absorbed decode at S=512
+     against the decompressed prefill of 513; (c) internvl2-76b cut to 8
+     of its 80 layers: 256 random patch embeddings and 2 prompts of
+     128-768 tokens through ``api.prefill`` and 8 ``api.decode_step``s
+     each (K4 8 launches a prefill); (d) whisper-small through
+     ``ServingEngine`` (4 requests of 64-448 tokens, 2 slots, max_seq
+     512; K4 36 launches a prefill: encoder, decoder self and cross);
+     (e) K4 at whisper's audio shapes (B=1, H=12, D=64, bf16,
+     non-causal: S=1500, and Sq=448 against Sk=1500) against its plain
+     version, timed in turns with SDPA; (f)
+     ``repro_torch.examples.serve_twin`` on cuda and cpu: the same
+     report.  A MoE model's first-token logits past ``LOGIT_TOL`` pass
+     only where the prefill's routers first part at a near tie (ranks k
+     and k + 1 within 1% of each other) and the kernels' prefill, rerun
+     with every router forced to the plain run's experts, comes back
+     within ``LOGIT_TOL``; both are printed.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -749,23 +774,42 @@ def traced(torch, fn, tag, what, kernel_keys):
     torch.profiler: the device's busy share of the traced wall (the
     union of kernel intervals), the kernel count, the device time of the
     kernels whose name holds each of ``kernel_keys`` and the top six
-    kernels.  Returns those numbers (times in us; busy None when the
-    profiler saw no device kernel)."""
+    kernels.  The traced call follows one warm-up call under the
+    profiler: a window's first kernels otherwise go unrecorded.  Where
+    a key is a wrapper's (``DEVICE_KERNEL``), the wrapper's own count
+    over the traced call is printed beside the profiler's.  Returns
+    those numbers (times in us; busy None when the profiler saw no
+    device kernel)."""
     if isinstance(kernel_keys, str):
         kernel_keys = (kernel_keys,)
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    wrappers = {key: sys.modules[name] for name, key in DEVICE_KERNEL.items()
+                if key in kernel_keys and name in sys.modules}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     untraced = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    done = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: done.append(
+                     (p.events(), p.key_averages()))) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = {key: m.LAUNCHES for key, m in wrappers.items()}
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        counted = {key: m.LAUNCHES - before[key]
+                   for key, m in wrappers.items()}
+        prof.step()
+    events, averages = done[0]
+    # the schedule marks each step on the device too ("ProfilerStep#n")
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     elementwise = sum("elementwise" in e.name for e in device)
     out = dict(untraced_us=untraced * 1e6, wall_us=wall * 1e6, busy_us=None,
@@ -783,20 +827,23 @@ def traced(torch, fn, tag, what, kernel_keys):
     busy += hi - lo
     out["busy_us"] = busy
     def share(key):
-        evs = [e for e in prof.key_averages() if key in e.key]
+        evs = [e for e in averages if key in e.key]
         total = sum(e.device_time_total for e in evs)
         count = sum(e.count for e in evs)
         out["by_key"][key] = (total, count)
         each = f", {total / count:.2f} us each" if count else ""
-        return f"{key} {total / 1e3:.2f} ms in {count} launches{each}"
+        wrapper = (f" (the wrapper counted {counted[key]})" if key in counted
+                   else "")
+        return f"{key} {total / 1e3:.2f} ms in {count} launches{wrapper}{each}"
     shares = ", ".join(share(key) for key in kernel_keys)
     print(f"{tag} {what}: untraced {untraced * 1e3:.1f} ms; traced "
           f"{wall * 1e3:.1f} ms with {len(spans)} device kernels "
           f"({elementwise} of them PyTorch elementwise kernels), device "
           f"busy {busy / 1e3:.1f} ms ({100.0 * busy / (wall * 1e6):.1f}% "
           f"of the traced wall), of it {shares}")
-    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-    for e in [e for e in top if not e.key.startswith("aten::")][:6]:
+    top = sorted(averages, key=lambda e: -e.device_time_total)
+    for e in [e for e in top if not e.key.startswith(
+            ("aten::", "ProfilerStep"))][:6]:
         print(f"{tag}   {e.device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x {e.key[:60]}")
     return out
@@ -1215,19 +1262,24 @@ def run_engine(torch, cfg, model, reqs, slots, max_seq, backend):
 
 
 def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
-                max_new, min_longest=0):
+                max_new, min_longest=0, extra=None):
     """Serve ``arch`` at full width (random bf16 weights from seed 0)
     with the kernels, then the same requests with the plain versions;
-    first-token logits within LOGIT_TOL, token streams equal or each
-    divergence a near tie.  ``kernels`` maps each kernel's wrapper module
-    to its launches per prefill and per decode step; every one must
-    launch exactly that many times with the kernels and never with the
-    plain versions.  Returns ``{module: launches}`` of the kernels' run."""
+    first-token logits within LOGIT_TOL (for a MoE model, or within it
+    once the routers are forced to the plain run's experts, after a
+    near tie: ``router_flip``), token streams
+    equal or each divergence a near tie.  ``kernels`` maps each kernel's
+    wrapper module to its launches per prefill and per decode step; every
+    one must launch exactly that many times with the kernels and never
+    with the plain versions.  ``extra(cfg, model)`` runs last, before
+    the model is freed.  Returns ``{module: launches}`` of the kernels'
+    run."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
+    from repro_torch.serve.engine import prefill_batch
     cfg = get_config(arch)
     tag = f"[serve {arch}]"
-    t0 = time.perf_counter()
+    t_model = t0 = time.perf_counter()
     model = api.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"{tag} {sum(p.numel() for p in model.parameters()):,} params "
@@ -1268,22 +1320,26 @@ def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
                 f"with the kernels (expected {per_prefill} x {n_pre} "
                 f"prefills + {per_step} x {n_dec} decode steps), "
                 f"{ref_launches[kernel]} with the plain versions")
-    with torch.inference_mode():
-        worst = 0.0
-        for r in reqs:
-            batch = {"tokens": torch.as_tensor(
-                r.prompt[None].astype("int64"), device="cuda")}
+    worst = 0.0
+    for r in reqs:
+        batch = prefill_batch(cfg, torch.as_tensor(
+            r.prompt[None].astype("int64"), device="cuda"))
+        with torch.inference_mode():
             got, _ = api.prefill(cfg, model, batch, "cuda")
             want, _ = api.prefill(cfg, model, batch, "reference")
-            if not torch.isfinite(got).all():
-                raise SystemExit(f"{tag} request {r.req_id}: non-finite "
-                                 f"logits")
-            worst = max(worst, float((got - want).abs().max()))
-    if worst > LOGIT_TOL:
-        raise SystemExit(f"{tag} first-token logits differ by {worst} > "
-                         f"{LOGIT_TOL}")
+        if not torch.isfinite(got).all():
+            raise SystemExit(f"{tag} request {r.req_id}: non-finite "
+                             f"logits")
+        diff = float((got - want).abs().max())
+        if diff > LOGIT_TOL:
+            router_flip(torch, cfg, model, batch, want,
+                        f"{tag} request {r.req_id}: first-token logits "
+                        f"differ by {diff:.4g} > {LOGIT_TOL}")
+        else:
+            worst = max(worst, diff)
     print(f"{tag} first-token logits, kernels vs plain: max abs diff "
-          f"{worst:.4g} (tolerance {LOGIT_TOL})")
+          f"{worst:.4g} (tolerance {LOGIT_TOL}) over the requests that "
+          f"route alike")
     same = 0
     for r, ref in zip(reqs, ref_reqs):
         if (len(r.output) != max_new or r.first_token_t != ref.first_token_t
@@ -1305,8 +1361,11 @@ def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
           f"requests; first/finish times identical")
     profile_serve(torch, cfg, model, reqs, slots, max_seq, tag,
                   tuple(DEVICE_KERNEL[k.__name__] for k in kernels))
+    if extra is not None:
+        extra(cfg, model)
     del model
     torch.cuda.empty_cache()
+    print(f"{tag} wall {time.perf_counter() - t_model:.1f} s")
     return launches
 
 
@@ -1314,9 +1373,10 @@ def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, keys):
     """One prefill of the longest prompt and one decode step of all
     slots (at that prompt's length), each untraced then traced."""
     from repro_torch.models import api
+    from repro_torch.serve.engine import prefill_batch
     longest = max(reqs, key=lambda r: len(r.prompt))
-    batch = {"tokens": torch.as_tensor(longest.prompt[None].astype("int64"),
-                                       device="cuda")}
+    batch = prefill_batch(cfg, torch.as_tensor(
+        longest.prompt[None].astype("int64"), device="cuda"))
     caches = api.init_caches(cfg, slots, max_seq, device="cuda")
     step = {"tokens": torch.zeros((slots, 1), dtype=torch.int64,
                                   device="cuda"),
@@ -3188,6 +3248,412 @@ def k2_phases(torch):
         print(f"[k2 phases] {name}: " + "; ".join(cells))
 
 
+# --------------------------------------------------------------- phase 16
+FAMILY_SERVE = dict(n_req=4, slots=2, lo=128, hi=1024, max_new=8)
+FAMILY_MAX_SEQ = 1280
+VLM_LAYERS = 8               # (c): internvl2-76b cut from 80 layers
+VLM_PROMPTS = (2, 128, 768)  # (c): prompts, shortest and longest
+VLM_STEPS = 8                # (c): decode steps a prompt
+WHISPER_SERVE = dict(n_req=4, slots=2, max_seq=512, lo=64, hi=448,
+                     max_new=8)
+WHISPER_AUDIO = ((1500, 1500), (448, 1500))   # (e): (Sq, Sk), non-causal
+AUDIO_Q_SCALE = 3.0          # (e): q's scale; scores of std 3
+MLA_S = 512                  # (b): positions before the decoded one
+#: A router flip is a near tie when the plain run's k-th and (k+1)-th
+#: probabilities at the flipped token differ by less than this share of
+#: the k-th (two bf16 steps of its logits are ~0.8%).
+NEAR_TIE = 1e-2
+
+
+def router_flip(torch, cfg, model, batch, want, what):
+    """``what`` (a first-token logit difference past LOGIT_TOL against
+    the plain run's ``want``) is accepted only for a MoE model whose
+    routers part, first at a near tie, and whose kernels' prefill, rerun
+    with every router's choice forced to the plain run's experts, comes
+    back within LOGIT_TOL.  Prints the first token whose top-k set
+    differs, with the plain run's k-th and (k+1)-th probabilities there,
+    and the forced rerun's difference."""
+    if cfg.family != "moe":
+        raise SystemExit(what)
+    from repro_torch.models import api
+    from repro_torch.models import blocks_moe as bm
+    route = bm.route
+
+    def prefill(backend, fn):
+        bm.route = fn
+        try:
+            with torch.inference_mode():
+                return api.prefill(cfg, model, batch, backend)[0]
+        finally:
+            bm.route = route
+
+    runs = {}
+    for backend in ("cuda", "reference"):
+        calls = []
+
+        def traced_route(cfg_, params, xc, calls=calls):
+            out = route(cfg_, params, xc)
+            calls.append((out[1], out[3]))
+            return out
+        prefill(backend, traced_route)
+        runs[backend] = calls
+    k = cfg.moe.top_k
+    parted = [(layer, t) for layer, ((_, idx), (_, ref_idx)) in enumerate(
+        zip(runs["cuda"], runs["reference"]))
+        for t in (idx.sort(-1).values != ref_idx.sort(-1).values).any(
+            -1).nonzero()[:1, 0].tolist()]
+    if not parted:
+        raise SystemExit(f"{what}, and every router agrees")
+    layer, t = parted[0]
+    top = runs["reference"][layer][0][t].sort(descending=True).values
+    pk, pk1 = float(top[k - 1]), float(top[k])
+    near = pk - pk1 < NEAR_TIE * pk
+    forced = iter([ref_idx for _, ref_idx in runs["reference"]])
+
+    def forced_route(cfg_, params, xc):
+        logits, probs, _, _ = route(cfg_, params, xc)
+        idx = next(forced)
+        gates = torch.gather(probs, 1, idx)
+        return logits, probs, gates / torch.clamp(
+            gates.sum(-1, keepdim=True), min=1e-9), idx
+    diff = float((prefill("cuda", forced_route) - want).abs().max())
+    print(f"{what}: the routers first part at MoE layer {layer}, token "
+          f"{t}, where the plain run's probabilities ranked {k} and "
+          f"{k + 1} are {pk:.6g} and {pk1:.6g} (gap {pk - pk1:.3g}, "
+          f"{100 * (pk - pk1) / pk:.2f}% of the first: "
+          f"{'a near tie' if near else 'NOT a near tie'}); with the plain "
+          f"run's experts forced in every router, the kernels' logits "
+          f"differ by {diff:.4g} (tolerance {LOGIT_TOL})")
+    if not near or not diff <= LOGIT_TOL:
+        raise SystemExit(f"{what}: not explained by a router near tie")
+
+
+def moe_dispatch_check(torch, cfg, model):
+    """(a) olmoe's two dispatches on the hidden states a 1024-token
+    prefill hands layer 0's MoE: ``moe_dropped`` and the aux terms equal;
+    GShard's y against gather's with every kept choice weighted by its
+    token's kept gate sum (C17: the reference's GShard combine), within
+    3e-2 of the largest |y| (bf16); the plain gather vs GShard difference
+    (C17's size); each dispatch's time."""
+    import dataclasses
+    from repro_torch.models import api
+    from repro_torch.models import blocks_moe as bm
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                         device="cuda")
+    seen = []
+    moe_apply = bm.moe_apply
+
+    def capture(cfg_, params, x):
+        if not seen:
+            seen.append((params, x))
+        return moe_apply(cfg_, params, x)
+    bm.moe_apply = capture
+    try:
+        with torch.inference_mode():
+            api.prefill(cfg, model, {"tokens": toks})
+    finally:
+        bm.moe_apply = moe_apply
+    params, x = seen[0]
+    m = cfg.moe
+    capacity = max(int(m.top_k * 1024 * m.capacity_factor / m.n_experts), 4)
+    cfgs = {d: dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, dispatch=d)) for d in ("gather", "gshard")}
+    route = bm.route
+
+    def summed(cfg_, params_, xc):
+        logits, probs, gates, idx = route(cfg_, params_, xc)
+        keep = bm.arrival_positions(idx, m.n_experts).reshape(
+            idx.shape) < capacity
+        return logits, probs, (gates * keep).sum(1, keepdim=True).expand(
+            gates.shape), idx
+
+    with torch.inference_mode():
+        out = {d: bm.moe_apply(c, params, x) for d, c in cfgs.items()}
+        bm.route = summed
+        try:
+            y_sum, _ = bm.moe_apply(cfgs["gather"], params, x)
+        finally:
+            bm.route = route
+        ms = {d: time_median_ms(torch, lambda c=c: bm.moe_apply(c, params, x),
+                                5, reps=3) for d, c in cfgs.items()}
+    (y_g, aux_g), (y_s, aux_s) = out["gather"], out["gshard"]
+    scale = float(y_s.float().abs().max())
+    err = float((y_sum.float() - y_s.float()).abs().max()) / scale
+    raw = float((y_g.float() - y_s.float()).abs().max()) / scale
+    same_aux = all(torch.equal(aux_g[key], aux_s[key]) for key in aux_g)
+    print(f"[serve {cfg.name}] dispatch on layer 0's 1024 tokens "
+          f"(capacity {capacity}): moe_dropped "
+          f"{float(aux_g['moe_dropped']):.0f} both, aux terms "
+          f"{'identical' if same_aux else 'DIFFERENT'}; GShard vs gather "
+          f"with C17's summed gates: max |diff| {100 * err:.3f}% of max |y| "
+          f"(tolerance 3%); plain gather vs GShard {100 * raw:.1f}% (C17); "
+          f"gather {ms['gather']:.2f} ms, GShard {ms['gshard']:.2f} ms")
+    if not same_aux or not err <= 3e-2 or not torch.isfinite(y_s).all():
+        raise SystemExit(f"[serve {cfg.name}] the dispatches disagree")
+
+
+def mla_decode_check(torch, cfg, model):
+    """(b) deepseek's first layer (dense_mla): MLA's absorbed decode of
+    position S = ``MLA_S`` from the compressed caches of a prefill of S
+    against the decompressed prefill of S + 1 at its last position,
+    within 3e-2 of the largest |y| (bf16)."""
+    from repro_torch.models import blocks_moe as bm
+    from repro_torch.models.common import embed, rms_norm
+    s = MLA_S
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen,
+                         device="cuda")
+    params = model.segs[0][0].params()
+    pos = torch.arange(s + 1, dtype=torch.int32, device="cuda")[None]
+    with torch.inference_mode():
+        x = rms_norm(embed(toks, model.top.embed), params["attn_norm.scale"],
+                     cfg.norm_eps)
+        full, _ = bm.mla_apply(cfg, params, x, mode="prefill", cache=None,
+                               positions=pos)
+        _, cache = bm.mla_apply(cfg, params, x[:, :s], mode="prefill",
+                                cache=None, positions=pos[:, :s])
+        big = bm.init_mla_cache(cfg, 1, s + 1, torch.bfloat16, x.device)
+        for name, t in cache.items():
+            big[name][:, :s] = t
+        step, _ = bm.mla_apply(cfg, params, x[:, s:], mode="decode",
+                               cache=big, positions=pos[:, s:], index=s)
+    want = full[:, s].float()
+    err = float((step[:, 0].float() - want).abs().max() / want.abs().max())
+    print(f"[serve {cfg.name}] MLA absorbed decode at S={s} vs the "
+          f"decompressed prefill of {s + 1}: max |diff| {100 * err:.3f}% "
+          f"of max |y| (tolerance 3%)")
+    if not err <= 3e-2:
+        raise SystemExit(f"[serve {cfg.name}] MLA decode parts from the "
+                         f"prefill")
+
+
+def vlm_phase(torch, fa):
+    """(c) internvl2-76b at published widths cut to ``VLM_LAYERS`` layers
+    (random bf16 weights, seed 0): 256 random patch embeddings and each
+    of 2 prompts through ``api.prefill`` and ``VLM_STEPS`` greedy
+    ``api.decode_step``s, with the kernels and with the plain versions;
+    K4 ``VLM_LAYERS`` launches a prefill and none a step; first-token
+    logits within LOGIT_TOL, streams equal or parting at a near tie.
+    Returns K4's launches with the kernels."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import greedy
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_config("internvl2-76b"),
+                              n_layers=VLM_LAYERS)
+    tag = "[vlm internvl2-76b]"
+    model = api.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{tag} published widths, {VLM_LAYERS} of 80 layers: "
+          f"{sum(p.numel() for p in model.parameters()):,} params (bf16) "
+          f"initialised in {time.perf_counter() - t_model:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    patches = torch.randn((1, cfg.n_patches, cfg.d_model), generator=gen,
+                          device="cuda", dtype=torch.bfloat16)
+    n, lo, hi = VLM_PROMPTS
+    rng = np.random.default_rng(1)
+    prompts = [torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))[None],
+        device="cuda") for _ in range(n)]
+
+    def serve(prompt, backend, times=None):
+        s = cfg.n_patches + prompt.shape[1]
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, caches = api.prefill(
+                cfg, model, {"tokens": prompt, "patches": patches}, backend)
+            tok, gap = greedy(logits[:, -1])
+            out, gaps = [int(tok[0])], [float(gap[0])]
+            if times is not None:
+                times["prefill"].append(time.perf_counter() - t0)
+            full = api.init_caches(cfg, 1, s + VLM_STEPS, device="cuda")
+            for key, layer in full.items():
+                for name, big in layer.items():
+                    big[:, :, :s] = caches[key][name]
+            for i in range(VLM_STEPS):
+                t0 = time.perf_counter()
+                step, full = api.decode_step(cfg, model, full, {
+                    "tokens": tok[:, None].long(), "index": s + i}, backend)
+                tok, gap = greedy(step[:, -1])
+                out.append(int(tok[0]))
+                gaps.append(float(gap[0]))
+                if times is not None:
+                    times["decode"].append(time.perf_counter() - t0)
+        return logits, out, gaps
+
+    runs = {}
+    for backend in ("cuda", "reference"):
+        serve(prompts[0][:, :16], backend)              # warm-up
+        times = {"prefill": [], "decode": []}
+        fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = [serve(p, backend, times) for p in prompts]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.LAUNCHES
+        toks = sum(len(r[1]) for r in res)
+        print(f"{tag} backend={backend}: {n} prompts of "
+              f"{'/'.join(str(p.shape[1]) for p in prompts)} tokens after "
+              f"{cfg.n_patches} patches: {toks} tokens in {wall:.2f} s "
+              f"({toks / wall:.1f} tok/s); prefill "
+              f"{1e3 * statistics.mean(times['prefill']):.1f} ms a prompt, "
+              f"decode {1e3 * statistics.median(times['decode']):.1f} ms a "
+              f"step; flash_attention launches {launches}")
+        runs[backend] = (res, launches)
+    want = VLM_LAYERS * n
+    if runs["cuda"][1] != want or runs["reference"][1] != 0:
+        raise SystemExit(f"{tag} flash_attention launches "
+                         f"{runs['cuda'][1]} / {runs['reference'][1]}, "
+                         f"expected {want} / 0")
+    worst, same = 0.0, 0
+    for i, ((lk, ok, _), (lr, orf, gr)) in enumerate(
+            zip(runs["cuda"][0], runs["reference"][0])):
+        if not torch.isfinite(lk).all():
+            raise SystemExit(f"{tag} non-finite logits")
+        worst = max(worst, float((lk - lr).abs().max()))
+        if ok == orf:
+            same += 1
+            continue
+        t = next(j for j, (a, b) in enumerate(zip(ok, orf)) if a != b)
+        print(f"{tag} prompt {i} diverges at token {t}: plain top-2 gap "
+              f"{gr[t]:.4g}")
+        if gr[t] > LOGIT_TOL:
+            raise SystemExit(f"{tag} divergence is not a near tie")
+    if worst > LOGIT_TOL:
+        raise SystemExit(f"{tag} first-token logits differ by {worst}")
+    print(f"{tag} first-token logits, kernels vs plain: max abs diff "
+          f"{worst:.4g} (tolerance {LOGIT_TOL}); streams identical for "
+          f"{same} of {n} prompts")
+    prompt = prompts[-1]
+    s = cfg.n_patches + prompt.shape[1]
+    caches = api.init_caches(cfg, 1, s + 1, device="cuda")
+    step = {"tokens": prompt[:, :1], "index": s}
+    with torch.inference_mode():
+        traced(torch, lambda: float(api.prefill(cfg, model, {
+            "tokens": prompt, "patches": patches})[0].sum()), tag,
+            f"prefill of {cfg.n_patches} patches + {prompt.shape[1]} tokens",
+            DEVICE_KERNEL[fa.__name__])
+        traced(torch, lambda: float(api.decode_step(cfg, model, caches,
+                                                    step)[0].sum()),
+               tag, "decode step", DEVICE_KERNEL[fa.__name__])
+    del model
+    torch.cuda.empty_cache()
+    print(f"{tag} wall {time.perf_counter() - t_model:.1f} s")
+    return runs["cuda"][1]
+
+
+def check_k4_audio(torch):
+    """(e) K4 at whisper-small's audio shapes (B=1, H=12, D=64, bf16,
+    non-causal): the encoder's self-attention over 1,500 frames and the
+    decoder's cross attention from 448 tokens to them; against its plain
+    version within 3e-2, timed in turns with SDPA, with the bound.  q is
+    drawn at ``AUDIO_Q_SCALE`` times unit deviation so that the softmax is
+    peaked and outputs are O(1) (at unit scores over 1,500 keys a mean
+    |o| of 0.034 would sit under the limit itself); the limit must then
+    catch the plain version with the last key left out."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import full_attention
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for sq, sk in WHISPER_AUDIO:
+        def proj(s, scale=1.0):
+            return (scale * torch.randn((1, s, 12, 64), generator=gen,
+                                        device="cuda")).to(
+                torch.bfloat16).transpose(1, 2)
+        q, k, v = proj(sq, AUDIO_Q_SCALE), proj(sk), proj(sk)
+        out = fa.flash_attention(q, k, v, causal=False)
+        ref = full_attention(q, k, v, causal=False, q_block=512)
+        short = full_attention(q, k[:, :, :-1], v[:, :, :-1], causal=False,
+                               q_block=512)
+        torch.cuda.synchronize()
+        err, ok = worst_excess(out, ref, 3e-2)
+        miss, blind = worst_excess(short, ref, 3e-2)
+        name = f"whisper Sq={sq} Sk={sk} H=12 D=64 bf16 non-causal"
+        print(f"[k4] {name}: plain mean |o| "
+              f"{float(ref.float().abs().mean()):.3g}; leaving the last "
+              f"key out moves it by up to {miss:.3g} "
+              f"({'NOT caught' if blind else 'caught'} by the limit)")
+        if blind:
+            raise SystemExit(f"[k4] the limit on {name} cannot see a "
+                             f"missing key")
+        if not ok or not torch.isfinite(out).all():
+            raise SystemExit(f"[k4] MISMATCH on {name}: max abs err {err}")
+        plain = time_median_ms(torch, lambda: full_attention(
+            q, k, v, causal=False, q_block=512), 3, reps=3)
+        ms, lib, turns = k4_in_turns(
+            torch, k4_raw_launch(torch, fa, q, k, v, False),
+            sdpa_call(torch, q.contiguous(), k.contiguous(), v.contiguous(),
+                      False))
+        flops = 4 * 12 * sq * sk * 64
+        nbytes = (2 * sq + 2 * sk) * 12 * 64 * 2
+        bnd, by = bound(nbytes, flops, 989e12)
+        print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = 3e-2); "
+              f"kernel {ms * 1e3:.1f} us (turns {turns[0] * 1e3:.1f}/"
+              f"{turns[3] * 1e3:.1f}), sdpa {lib * 1e3:.1f} us (turns "
+              f"{turns[1] * 1e3:.1f}/{turns[2] * 1e3:.1f}), plain "
+              f"{plain * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by}; "
+              f"kernel at {100 * bnd / ms:.1f}% of it, sdpa "
+              f"{100 * bnd / lib:.1f}%)")
+        rows[f"whisper_sq{sq}_sk{sk}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=lib)
+    return rows
+
+
+def serve_twin_check(torch, fa):
+    """(f) ``repro_torch.examples.serve_twin`` on cuda and on cpu, in this
+    process: the same report; K4 in every prefill on cuda (12 requests x
+    2 layers), none on cpu."""
+    import contextlib
+    import io
+    from repro_torch.examples import serve_twin
+    out = {}
+    for device in ("cuda", "cpu"):
+        fa.LAUNCHES = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve_twin.main(["--device", device])
+        out[device] = (buf.getvalue(), fa.LAUNCHES,
+                       time.perf_counter() - t0)
+    (rep_g, n_g, wall_g), (rep_c, n_c, wall_c) = out["cuda"], out["cpu"]
+    print(f"[serve_twin] python -m repro_torch.examples.serve_twin: cuda "
+          f"{wall_g:.1f} s ({n_g} flash_attention launches), cpu "
+          f"{wall_c:.1f} s; reports "
+          f"{'identical' if rep_g == rep_c else 'DIFFER'}; last line: "
+          f"{rep_g.strip().splitlines()[-1]}")
+    if rep_g != rep_c or n_g != 24 or n_c != 0:
+        raise SystemExit(f"[serve_twin] cuda report {rep_g!r} vs cpu "
+                         f"{rep_c!r}; launches {n_g} / {n_c}")
+    return n_g
+
+
+def family_phase(torch, fa):
+    """Phase 16: the moe, vlm and encdec families at published widths,
+    K4 in their prefills.  Returns ({path: K4 launches}, K4 at whisper's
+    audio shapes)."""
+    t_phase = time.perf_counter()
+    launches = {}
+    launches["olmoe-1b-7b"] = serve_phase(
+        torch, "olmoe-1b-7b", {fa: (16, 0)}, max_seq=FAMILY_MAX_SEQ,
+        extra=lambda cfg, model: moe_dispatch_check(torch, cfg, model),
+        **FAMILY_SERVE)[fa]
+    launches["deepseek-v2-lite-16b"] = serve_phase(
+        torch, "deepseek-v2-lite-16b", {fa: (0, 0)}, max_seq=FAMILY_MAX_SEQ,
+        extra=lambda cfg, model: mla_decode_check(torch, cfg, model),
+        **FAMILY_SERVE)[fa]
+    launches["internvl2-76b"] = vlm_phase(torch, fa)
+    launches["whisper-small"] = serve_phase(
+        torch, "whisper-small", {fa: (36, 0)}, **WHISPER_SERVE)[fa]
+    audio = check_k4_audio(torch)
+    launches["serve_twin"] = serve_twin_check(torch, fa)
+    print(f"[families] phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launches, audio
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3228,6 +3694,7 @@ def main() -> int:
     mc = monte_carlo_phase(torch, pe, snapshot, engine)
     learn = learning_phase(torch, pe, engine)
     fleet_pass, fleet = fleet_phase(torch, pe, snapshot, mc)
+    families, k4_audio = family_phase(torch, fa)
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)
@@ -3237,7 +3704,8 @@ def main() -> int:
         k2_phases(torch)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     k4_err = max([k4["max_abs_err"]]
-                 + [r["max_abs_err"] for r in k4_local.values()])
+                 + [r["max_abs_err"] for r in k4_local.values()]
+                 + [r["max_abs_err"] for r in k4_audio.values()])
     local = {key: k4_local[2048][key] for key in
              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(card_line())
@@ -3259,11 +3727,12 @@ def main() -> int:
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg], **k2),
         dict(K3, launches=rwkv[wk], **k3),
-        dict(K4, launches=llama[fa] + rgemma[fa],
+        dict(K4, launches=llama[fa] + rgemma[fa] + sum(families.values()),
              **{**k4, "max_abs_err": k4_err},
              launches_by_path={"llama3.2-1b": llama[fa],
-                               "recurrentgemma-2b": rgemma[fa]},
-             recurrentgemma_local_s2048=local)]}))
+                               "recurrentgemma-2b": rgemma[fa],
+                               **families},
+             recurrentgemma_local_s2048=local, **k4_audio)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

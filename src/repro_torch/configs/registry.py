@@ -2,10 +2,10 @@
 ``repro/configs/registry.py``, all ten entries as data.
 
 Sources are public literature/HF configs; see per-entry comments.
-Select with ``--arch <id>`` in the launchers.  Every entry is listed,
-but only the ``dense`` and ``ssm`` families can be built into a model
-yet (``models/lm.py::plan_segments`` raises for the others, naming
-their ROADMAP item).
+Select with ``--arch <id>`` in the launchers.  Every entry can be built
+into a model and served through ``models/api.py``; the serving engine
+refuses the vlm (internvl2-76b), as the reference's cannot feed it
+(ROADMAP C15).
 """
 from __future__ import annotations
 

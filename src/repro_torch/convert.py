@@ -12,13 +12,14 @@ hands the same arrays to both packages:
 numpy arrives as float64/int64; everything is cast to the reference's
 dtypes on entry (times f32, node counts and lifecycle codes i32).
 
-The LM's weights travel as the reference's flat parameter dict,
+A model's weights travel as the reference's flat parameter dict,
 ``{name: float32 ndarray}`` with its names and stacked shapes
 (``embed``, ``final_norm.scale``, ``seg0.attn.wq`` of shape
-(L, d, H, D)): ``params_from_numpy`` builds the port's ``LM`` from it and
-``params_to_numpy`` is its inverse.  float32 carries bf16 exactly (the
-machine with the card has no numpy bfloat16), so a test hands JAX's bf16
-leaves over as ``np.asarray(x.astype(jnp.float32))``.
+(L, d, H, D); ``enc.self.wq`` for Whisper): ``params_from_numpy`` builds
+the port's model from it (an ``EncDec`` for the encdec family, an ``LM``
+for the others) and ``params_to_numpy`` is its inverse.  float32 carries
+bf16 exactly (the machine with the card has no numpy bfloat16), so a
+test hands JAX's bf16 leaves over as ``np.asarray(x.astype(jnp.float32))``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from repro_torch.core.policies import (N_THETA, PolicyPool, PolicySpec,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import JobTable, SimState
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm import LM
+from repro_torch.models import api
 
 JOB_FIELDS = JobTable._fields
 _I32_JOB_FIELDS = ("nodes", "state")
@@ -97,11 +98,11 @@ def pool_from_numpy(family: np.ndarray, theta: np.ndarray,
 @torch.no_grad()
 def params_from_numpy(cfg: ModelConfig, d: Dict[str, np.ndarray],
                       device: DeviceLike = "cuda",
-                      dtype: torch.dtype = torch.bfloat16) -> LM:
-    """The port's ``LM`` holding the values of ``d``, the reference's
+                      dtype: torch.dtype = torch.bfloat16) -> api.Model:
+    """The port's model holding the values of ``d``, the reference's
     parameter dict (every name of ``api.param_table(cfg)``, float32),
     cast to ``dtype`` on ``device``."""
-    model = LM(cfg, dtype, resolve_device(device))
+    model = api.model_class(cfg)(cfg, dtype, resolve_device(device))
     names = set()
     for name, shape, tensors in model.table_entries():
         if name not in d:
@@ -123,7 +124,7 @@ def params_from_numpy(cfg: ModelConfig, d: Dict[str, np.ndarray],
 
 
 @torch.no_grad()
-def params_to_numpy(model: LM) -> Dict[str, np.ndarray]:
+def params_to_numpy(model: api.Model) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_numpy``: the reference's flat dict of
     float32 host arrays, scanned segments stacked on a leading axis."""
     out = {}

@@ -3,4 +3,5 @@
 ``cuda``): ``quickstart`` (the paper's §4.1 setup, grids, the fleet
 grid, fans, races, the twin, chaos and training), ``fleet_twin`` (the
 twin scheduling an accelerator fleet's model jobs through a pod
-failure) and ``train_policy`` (train θ, score it, deploy it)."""
+failure), ``train_policy`` (train θ, score it, deploy it) and
+``serve_twin`` (twin-driven admission in the serving engine)."""

@@ -5,7 +5,9 @@ plus ``--device`` (default ``cuda``; the CPU only when asked for) and
 ``--backend`` (default ``cuda``: the hand-written kernels on CUDA
 tensors; ``reference`` runs their plain versions, for checks).  Weights
 are random, drawn from ``--seed`` on the device (they differ from the
-JAX package's: ROADMAP A6).
+JAX package's: ROADMAP C5).  Every ``--arch`` serves but internvl2-76b:
+the engine feeds a vlm no patch embeddings, and the reference's fails on
+it (ROADMAP C15).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \\
         --requests 16 --slots 4 --max-new 16 --device cpu
@@ -59,9 +61,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     if args.mesh == "production":
         raise SystemExit("--mesh production is not ported to repro_torch "
-                         "(one GPU; mesh code is ROADMAP A11)")
-    device = resolve_device(args.device)
+                         "(one GPU; mesh code is ROADMAP A11.7)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "vlm":
+        raise SystemExit(f"{args.arch}: the serving engine feeds a vlm no "
+                         f"patch embeddings (ROADMAP C15)")
+    device = resolve_device(args.device)
     model = api.init_model(cfg, seed=args.seed, device=device)
     reqs = make_requests(cfg, args.requests, args.max_seq, args.max_new,
                          args.seed)

@@ -67,7 +67,7 @@ def init_attn_cache(cfg: ModelConfig, batch: int, seq: int,
     }
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, H, D) -> (B, S, H, D)."""
     b, s, _ = x.shape
     return matmul(x, w.reshape(w.shape[0], -1)).reshape(
@@ -81,9 +81,9 @@ def attn_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                ) -> Tuple[torch.Tensor, Cache]:
     """x: (B, S, d) -> (B, S, d).  RoPE + GQA + causal (or local)."""
     b, s, _ = x.shape
-    q = _project(x, params[f"{prefix}.wq"])
-    k = _project(x, params[f"{prefix}.wk"])
-    v = _project(x, params[f"{prefix}.wv"])
+    q = project(x, params[f"{prefix}.wq"])
+    k = project(x, params[f"{prefix}.wk"])
+    v = project(x, params[f"{prefix}.wv"])
     if cfg.qkv_bias:
         q = q + params[f"{prefix}.bq"]
         k = k + params[f"{prefix}.bk"]

@@ -17,7 +17,7 @@ JAX's threefry draws; parity tests carry JAX's values across with
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -132,6 +132,43 @@ class TableModule(nn.Module):
     def params(self) -> Params:
         """``{dotted name: tensor}``, the table's names."""
         return dict(self.named_parameters())
+
+
+class TableModel(nn.Module):
+    """A whole model's parameters in per-layer ``TableModule``s.  A
+    subclass lists them by the reference's names in ``table_entries``
+    (what ``convert`` carries across) and keeps one in ``self.top``."""
+
+    top: TableModule
+
+    def table_entries(self) -> Iterator[Tuple[str, Tuple[int, ...],
+                                              List[torch.Tensor]]]:
+        """``(reference name, reference shape, per-layer tensors)`` for
+        every entry of the reference's table: a stacked entry lists one
+        tensor per layer (the slices of its leading axis), any other
+        entry one."""
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        return self.top.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.top.embed.dtype
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator,
+                     scale: float = 0.02) -> "TableModel":
+        """The reference's init rules (``init_rule``, with the fan-in of
+        the reference's stacked shape), drawn from ``generator`` (on this
+        model's device) in sorted name order."""
+        for name, shape, tensors in sorted(self.table_entries(),
+                                           key=lambda e: e[0]):
+            rule = init_rule(name, shape, scale)
+            for t in tensors:
+                init_tensor_(t, rule, generator)
+        return self
 
 
 # ----------------------------------------------------------------------

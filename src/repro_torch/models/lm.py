@@ -1,8 +1,9 @@
 """Generic decoder LM: embeddings + block segments + unembedding.
 
 Port of ``repro/models/lm.py`` for serving (prefill and decode) of the
-``dense`` (llama), ``ssm`` (RWKV6) and ``hybrid`` (RecurrentGemma)
-families; the others raise when a model is built (ROADMAP A11).
+``dense`` (llama), ``vlm`` (InternVL2's decoder), ``moe`` (OLMoE,
+DeepSeek-V2), ``ssm`` (RWKV6) and ``hybrid`` (RecurrentGemma) families;
+``encdec`` (Whisper) is ``models/encdec.py``.
 
 A model is a list of *segments*; each segment is ``n`` layers of one
 block kind.  The reference stacks a scanned segment's parameters on a
@@ -17,6 +18,13 @@ local) repeated ``n_layers // 3`` times as one scanned segment, whose
 layer j holds the three blocks' parameters under ``p0.``, ``p1.``,
 ``p2.`` and its caches under ``p0``..``p2``, then the remainder layers
 in pattern order, one unscanned segment each.
+
+The moe family is DeepSeek's ``dense_mla`` layers (``first_dense_layers``,
+unscanned, ``seg0.l{j}``), then one scanned ``moe`` segment.  The vlm
+family is one dense segment behind a stub vision front end: precomputed
+patch embeddings (B, P, d), projected by ``patch_proj`` and prepended to
+the token embeddings outside decode, so positions run over P + S and a
+decode index counts the P patch positions.
 """
 from __future__ import annotations
 
@@ -27,11 +35,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import blocks_attn, blocks_rnn
-from repro_torch.models.common import (ParamTable, TableModule, embed,
-                                       init_rule, init_tensor_,
-                                       merge_tables, prefix_table, rms_norm,
-                                       stack_table, unembed)
+from repro_torch.models import blocks_attn, blocks_moe, blocks_rnn
+from repro_torch.models.common import (ParamTable, TableModel, TableModule,
+                                       embed, matmul, merge_tables,
+                                       prefix_table, rms_norm, stack_table,
+                                       unembed)
 
 #: ``seg{i}.l{j}`` -> the layer's cache: ``{name: tensor}``, or for a
 #: pattern layer ``{"p{k}": {name: tensor}}``.
@@ -45,8 +53,12 @@ class Segment(NamedTuple):
 
 
 def plan_segments(cfg: ModelConfig) -> List[Segment]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [Segment("dense", cfg.n_layers, cfg.use_scan)]
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        segs = [Segment("dense_mla", fd, False)] if fd else []
+        return segs + [Segment("moe", cfg.n_layers - fd, cfg.use_scan)]
     if cfg.family == "ssm":
         return [Segment("rwkv", cfg.n_layers, cfg.use_scan)]
     if cfg.family == "hybrid":
@@ -55,9 +67,8 @@ def plan_segments(cfg: ModelConfig) -> List[Segment]:
         for k in range(rem):  # remainder layers follow the pattern order
             segs.append(Segment(cfg.block_pattern[k], 1, False))
         return segs
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-        f"yet (ROADMAP A11); ported: dense, ssm, hybrid")
+    raise ValueError(f"{cfg.name}: family {cfg.family!r} is not handled "
+                     f"by lm.py")
 
 
 # ----------------------------------------------------------------------
@@ -101,6 +112,9 @@ def _pattern_cache(cfg, batch, seq, dtype, device):
 
 BLOCKS: Dict[str, Tuple[Any, Any, Any]] = {
     "dense": (blocks_attn.table, blocks_attn.apply, blocks_attn.init_cache),
+    "moe": (blocks_moe.table, blocks_moe.apply, blocks_moe.init_cache),
+    "dense_mla": (blocks_moe.dense_mla_table, blocks_moe.dense_mla_apply,
+                  blocks_moe.init_cache),
     "rwkv": (blocks_rnn.table, blocks_rnn.apply, blocks_rnn.init_cache),
     "rglru": (blocks_rnn.rglru_table, blocks_rnn.rglru_block_apply,
               blocks_rnn.init_cache_rglru),
@@ -121,10 +135,13 @@ def _top_table(cfg: ModelConfig) -> ParamTable:
     if not cfg.tie_embeddings:
         top["unembed"] = ((cfg.vocab_size, cfg.d_model),
                           ("vocab", "d_model"))
+    if cfg.family == "vlm":
+        # stub front end: a projection of precomputed patch embeddings
+        top["patch_proj"] = ((cfg.d_model, cfg.d_model), ("d_model", None))
     return top
 
 
-def lm_table(cfg: ModelConfig) -> ParamTable:
+def param_table(cfg: ModelConfig) -> ParamTable:
     tabs = [_top_table(cfg)]
     for i, seg in enumerate(plan_segments(cfg)):
         tab = BLOCKS[seg.kind][0](cfg)
@@ -136,11 +153,12 @@ def lm_table(cfg: ModelConfig) -> ParamTable:
     return merge_tables(*tabs)
 
 
-class LM(nn.Module):
-    """The model's parameters: ``top`` (embed, final_norm, unembed) and
-    ``segs[i][j]``, layer j of segment i, each a ``TableModule`` named by
-    the block's table.  Allocated uninitialized on ``device``; fill with
-    ``init_weights`` or ``convert.params_from_numpy``."""
+class LM(TableModel):
+    """The model's parameters: ``top`` (embed, final_norm, unembed, the
+    vlm's patch_proj) and ``segs[i][j]``, layer j of segment i, each a
+    ``TableModule`` named by the block's table.  Allocated uninitialized
+    on ``device``; fill with ``init_weights`` or
+    ``convert.params_from_numpy``."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = "cuda") -> None:
@@ -158,20 +176,9 @@ class LM(nn.Module):
             self.segs.append(nn.ModuleList(
                 TableModule(shapes, dtype, dev) for _ in range(seg.n)))
 
-    @property
-    def device(self) -> torch.device:
-        return self.top.embed.device
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.top.embed.dtype
-
     def table_entries(self) -> Iterator[Tuple[str, Tuple[int, ...],
                                               List[torch.Tensor]]]:
-        """``(reference name, reference shape, per-layer tensors)`` for
-        every entry of ``lm_table``: a scanned entry lists one tensor per
-        layer (the slices of its leading axis), any other entry one."""
-        table = lm_table(self.cfg)
+        table = param_table(self.cfg)
         for name in _top_table(self.cfg):
             yield name, table[name][0], [self.top.get_parameter(name)]
         for i, seg in enumerate(self.plan):
@@ -186,18 +193,9 @@ class LM(nn.Module):
                         yield name, table[name][0], [
                             layer.get_parameter(key)]
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator,
-                     scale: float = 0.02) -> "LM":
-        """The reference's init rules (``common.init_rule``, with the
-        fan-in of the reference's stacked shape), drawn from
-        ``generator`` (on this model's device) in sorted name order."""
-        for name, shape, tensors in sorted(self.table_entries(),
-                                           key=lambda e: e[0]):
-            rule = init_rule(name, shape, scale)
-            for t in tensors:
-                init_tensor_(t, rule, generator)
-        return self
+
+#: The family's model class, as ``api.model_class`` finds it.
+Model = LM
 
 
 # ----------------------------------------------------------------------
@@ -241,16 +239,20 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int,
 def embed_inputs(cfg: ModelConfig, model: LM, batch: Dict[str, Any], *,
                  mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B, S, d), positions (B, S)).  Decode positions are the
-    batch's uniform ``index``."""
+    batch's uniform ``index``.  vlm: ``batch["patches"]`` (B, P, d), cast
+    to the embedding dtype and projected, go before the tokens."""
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    b = tokens.shape[0]
     x = embed(tokens, model.top.embed)
+    if cfg.family == "vlm" and mode != "decode":
+        patches = batch["patches"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([matmul(patches, model.top.patch_proj), x], dim=1)
     if mode == "decode":
         positions = torch.full((b, 1), int(batch["index"]),
                                dtype=torch.int32, device=x.device)
     else:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device).expand(b, -1)
     return x, positions
 
 

@@ -12,6 +12,13 @@ Like the reference, every decode step runs all slots at one index, the
 largest position among them (ROADMAP C6): a slot with a shorter prompt
 writes past its own length and attends over zero-filled cache rows.
 The port reproduces this so that token streams match.
+
+An encdec (Whisper) prefill gets zero frames of the prompt's length as
+its stub audio, as in the reference; the batched cross caches then hold
+each slot's frames zero-padded to ``max_seq``, and decode attends over
+them unmasked (ROADMAP C16).  A vlm prefill needs patch embeddings,
+which the reference engine never feeds (its prefill fails); the port's
+engine refuses a vlm config at once (ROADMAP C15).
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
-from repro_torch.models.lm import LM, Caches
+from repro_torch.models.api import Caches, Model
 
 
 def make_serve_fns(cfg: ModelConfig, backend: str = "cuda"):
@@ -33,10 +40,10 @@ def make_serve_fns(cfg: ModelConfig, backend: str = "cuda"):
     ``jnp.argmax``), the top-1 minus top-2 logit gap of each row, and
     the caches."""
 
-    def prefill_fn(model: LM, batch: Dict[str, torch.Tensor]):
+    def prefill_fn(model: Model, batch: Dict[str, torch.Tensor]):
         return api.prefill(cfg, model, batch, backend)
 
-    def decode_fn(model: LM, caches: Caches, tokens: torch.Tensor,
+    def decode_fn(model: Model, caches: Caches, tokens: torch.Tensor,
                   index: int):
         logits, caches = api.decode_step(
             cfg, model, caches, {"tokens": tokens, "index": index}, backend)
@@ -44,6 +51,19 @@ def make_serve_fns(cfg: ModelConfig, backend: str = "cuda"):
         return next_tok, gap, caches
 
     return prefill_fn, decode_fn
+
+
+def prefill_batch(cfg: ModelConfig, prompt: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The engine's prefill input for a (1, S) prompt: the encdec family
+    also gets zero frames (1, S, d_model) in bf16, the reference engine's
+    stub audio."""
+    batch = {"tokens": prompt}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, prompt.shape[1], cfg.d_model),
+                                      dtype=torch.bfloat16,
+                                      device=prompt.device)
+    return batch
 
 
 def greedy(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,11 +100,17 @@ class ServingEngine:
     ``model`` must live on ``device``.
     """
 
-    def __init__(self, cfg: ModelConfig, model: LM, batch_slots: int,
+    def __init__(self, cfg: ModelConfig, model: Model, batch_slots: int,
                  max_seq: int,
                  admission: Optional[Callable[[List[Request]], int]] = None,
                  *, device: DeviceLike = "cuda",
                  backend: str = "cuda") -> None:
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                f"{cfg.name}: the serving engine feeds a vlm prefill no "
+                f"patch embeddings, so the reference engine cannot serve "
+                f"it (ROADMAP C15); call api.prefill/api.decode_step with "
+                f"batch['patches']")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -118,7 +144,8 @@ class ServingEngine:
     def _fill_slot(self, slot: int, req: Request) -> None:
         prompt = torch.as_tensor(np.asarray(req.prompt, dtype=np.int64)[None],
                                  device=self.model.device)
-        logits, caches1 = self._prefill(self.model, {"tokens": prompt})
+        logits, caches1 = self._prefill(self.model,
+                                        prefill_batch(self.cfg, prompt))
         tok, gap = greedy(logits[:, -1])
         _write_caches(self.caches, caches1, slot)
         tok, gap = int(tok[0]), float(gap[0])

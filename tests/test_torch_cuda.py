@@ -98,6 +98,17 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   piece): its uploads, concatenation, metrics and selection wait for
   nothing.  ``make_fleet_mesh`` takes the local cards and refuses other
   counts; a mesh naming a card past the last raises.
+* K4 at whisper-small's audio shapes (B=1, H=12, D=64, bf16): encoder
+  self-attention at S=1500 and cross attention at Sq=448, Sk=1500, both
+  non-causal; 3e-2.
+* The serving families of the eighth slice on the card, at smoke size:
+  ``moe_apply`` (both dispatches, chunked by ``MOE_CHUNK`` = 16) on cuda
+  against the same call on the CPU (routing, hence ``moe_dropped``,
+  equal; y and aux rtol 1e-4 / atol 1e-5 in float32, no TF32); MLA's
+  absorbed decode on cuda against the CPU and against the full
+  forward; whisper and olmoe prefills with K4 (``backend="cuda"``)
+  against the plain versions, and K4's launches a prefill (whisper: 2
+  encoder + 2 x 2 decoder layers; olmoe: 2 layers).
 """
 import warnings
 
@@ -1061,3 +1072,119 @@ def test_make_fleet_mesh_on_the_card():
         FleetMesh([f"cuda:{n}"])
     assert FleetMesh(["cuda", "cuda"]).devices == (
         torch.device("cuda", torch.cuda.current_device()),) * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(1500, 1500), (448, 1500)],
+                         ids=["encoder", "cross"])
+def test_flash_attention_whisper_shapes(sq, sk):
+    """q at three times unit scale peaks the softmax, so outputs are O(1)
+    and the limit can see a single missing key (at unit scale over 1,500
+    keys the mean |o| is ~0.03, the size of the limit itself)."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    q = _bf16_views(gen, 1, sq, 12, 64)
+    q = (3.0 * q.float()).to(torch.bfloat16)
+    k = _bf16_views(gen, 1, sk, 12, 64)
+    v = _bf16_views(gen, 1, sk, 12, 64)
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = full_attention(q, k, v, causal=False)
+    short = full_attention(q, k[:, :, :-1], v[:, :, :-1], causal=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(short.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+def _smoke(arch, head_dim=16, **moe):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch, head_dim=head_dim)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["gather", "gshard"])
+def test_moe_dispatch_on_the_card_matches_the_cpu(dispatch, monkeypatch):
+    _card()
+    from repro_torch.device import resolve_device
+    from repro_torch.models import blocks_moe as bm
+    from repro_torch.models.common import init_params
+    resolve_device("cuda")            # no TF32
+    monkeypatch.setattr(bm, "MOE_CHUNK", 16)
+    cfg = _smoke("olmoe-1b-7b", dispatch=dispatch)
+    params = init_params(bm.moe_table(cfg), torch.Generator().manual_seed(0),
+                         torch.float32)
+    x = torch.randn((2, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    for n_tok in (32, 48, 42):        # two chunks, three, ragged
+        xs = x.reshape(-1, cfg.d_model)[:n_tok].reshape(1, n_tok, -1)
+        want, waux = bm.moe_apply(cfg, params, xs)
+        got, aux = bm.moe_apply(cfg, {k: v.cuda() for k, v in params.items()},
+                                xs.cuda())
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+        assert float(aux["moe_dropped"]) == float(waux["moe_dropped"])
+        for key in ("moe_aux", "moe_z"):
+            torch.testing.assert_close(aux[key].cpu(), waux[key], atol=1e-5,
+                                       rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mla_decode_on_the_card():
+    _card()
+    from repro_torch.models import api
+    cfg = _smoke("deepseek-v2-lite-16b", capacity_factor=4.0)
+    b, s = 2, 40
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                         generator=torch.Generator().manual_seed(2))
+    cpu_model = api.init_model(cfg, seed=0, dtype=torch.float32,
+                               device="cpu")
+    cuda_model = api.init_model(cfg, seed=0, dtype=torch.float32,
+                                device="cuda")
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    got = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", cuda_model)):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            want, _ = api.prefill(cfg, model, {"tokens": t})
+            _, caches = api.prefill(cfg, model, {"tokens": t[:, :s]})
+            full = api.init_caches(cfg, b, s + 1, device=dev)
+            for key, layer in full.items():
+                for name, big in layer.items():
+                    small = caches[key][name]
+                    big[tuple(slice(0, n) for n in small.shape)] = small
+            step, _ = api.decode_step(cfg, model, full,
+                                      {"tokens": t[:, s:], "index": s})
+        torch.testing.assert_close(step.cpu(), want.cpu(), atol=3e-2,
+                                   rtol=3e-2)
+        got[dev] = step.cpu()
+    torch.testing.assert_close(got["cuda"], got["cpu"], atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_prefill", [("whisper-small", 6),
+                                              ("olmoe-1b-7b", 2)])
+def test_family_prefill_through_k4(arch, per_prefill):
+    _card()
+    from repro_torch.models import api
+    from repro_torch.serve.engine import prefill_batch
+    cfg = _smoke(arch, head_dim=32)       # K4 takes head dims 32-256
+    model = api.init_model(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, 37),
+                         generator=torch.Generator().manual_seed(3)).cuda()
+    batch = prefill_batch(cfg, toks)
+    with torch.inference_mode():
+        fa.LAUNCHES = 0
+        got, _ = api.prefill(cfg, model, batch, "cuda")
+        assert fa.LAUNCHES == per_prefill
+        want, _ = api.prefill(cfg, model, batch, "reference")
+        assert fa.LAUNCHES == per_prefill
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)

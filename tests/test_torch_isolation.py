@@ -17,12 +17,16 @@
   ``twin_loop --train/--chaos/--snapshot-dir``, and the fleet engine
   (``make_fleet_mesh``, a ``FleetMesh`` naming ``cuda``, every
   ``whatif.sharded_*`` entry, ``decide_legacy_vmap``, ``twin_loop
-  --shard/--block-size/--prefetch``) and the three examples.
+  --shard/--block-size/--prefetch``) and the four examples, and the
+  serving stack of the moe, vlm and encdec families (``EncDec``,
+  ``init_model``/``init_caches`` for each, ``launch.serve --arch`` of
+  olmoe, deepseek and whisper, ``examples.serve_twin``).
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
 """
 import ast
+import functools
 import pathlib
 import subprocess
 import sys
@@ -45,8 +49,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import policy_eval as pe
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
+from repro_torch.examples import serve_twin
 from repro_torch.launch import serve, twin_loop
 from repro_torch.models import api
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 from repro_torch.serve import ServingEngine
 
@@ -236,7 +242,22 @@ def test_serving_entry_points_raise_for_cuda_without_a_card():
         "init_model": lambda: api.init_model(cfg),
         "init_caches": lambda: api.init_caches(cfg, 2, 16),
         "LM": lambda: LM(cfg),
+        "serve_twin.main": lambda: serve_twin.main([]),
     }
+    for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "internvl2-76b",
+                 "whisper-small"):
+        fam = get_smoke_config(arch)
+        calls[f"init_model({arch})"] = functools.partial(api.init_model,
+                                                         fam)
+        calls[f"init_caches({arch})"] = functools.partial(
+            api.init_caches, fam, 2, 16)
+        if fam.family != "vlm":
+            calls[f"serve.main({arch})"] = functools.partial(
+                serve.main, ["--arch", arch, "--smoke"])
+    whisper = get_smoke_config("whisper-small")
+    calls["EncDec"] = lambda: EncDec(whisper)
+    calls["ServingEngine(whisper)"] = lambda: ServingEngine(
+        whisper, api.init_model(whisper, device="cpu"), 2, 16)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

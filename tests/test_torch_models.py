@@ -1,17 +1,28 @@
 """The port's LM stack (``repro_torch.models``, ``convert``) against the
-JAX package's, for the three families it serves: ``dense``
-(llama3.2-1b), ``ssm`` (rwkv6-7b) and ``hybrid`` (recurrentgemma-2b:
-a scanned (rglru, rglru, local) pattern segment, then a remainder rglru
-layer, with nested per-block caches).
+JAX package's, for the families it serves: ``dense`` (llama3.2-1b),
+``ssm`` (rwkv6-7b), ``hybrid`` (recurrentgemma-2b: a scanned (rglru,
+rglru, local) pattern segment, then a remainder rglru layer, with
+nested per-block caches), ``moe`` (deepseek-v2-lite-16b: an unscanned
+dense_mla layer, then MLA + MoE layers with compressed caches;
+olmoe-1b-7b: GQA + MoE), ``vlm`` (internvl2-76b: patch embeddings
+projected and prepended) and ``encdec`` (whisper-small: encoder, then a
+decoder with self and cross caches).
 
 * ``param_table``: names, shapes and logical axes equal to JAX's, full
-  size and smoke; ``count_params`` equal at full size (no allocation).
+  size and smoke, for all ten architectures; ``count_params`` equal at
+  full size (no allocation).
 * ``convert``: ``params_to_numpy(params_from_numpy(d)) == d`` bitwise,
   in float32 and (for bf16-representable values) in bfloat16.
 * Smoke configs, float32 parameters made by JAX's ``init_params`` and
   carried across with ``convert``: ``prefill`` logits and caches, then
   one ``decode_step`` (logits and updated caches), against JAX's
-  ``api.prefill``/``api.decode_step``.  Tolerance: rtol 1e-4 with
+  ``api.prefill`` (jitted) and ``api.decode_step`` (eager: jitted, XLA
+  keeps bf16 intermediates in f32).  The vlm's prefill takes 8 patch
+  embeddings and its decode index counts them; whisper's takes frames as
+  long as the prompt, and its cross caches are zero-padded to
+  ``max_seq`` for decode, as the serving engines store them (C16).  The
+  moe family's case, with its routing in chunks, is
+  ``tests/test_torch_moe.py::test_chunked_prefill_and_decode_match_jax``.  Tolerance: rtol 1e-4 with
   atol 1e-5 on f32 values (logits, prefill caches, the wkv state: XLA
   and torch sum in different orders); caches stored in bf16 (decode's
   KV and token-shift rows) to one bf16 ulp, atol 1e-2 relative to the
@@ -41,10 +52,20 @@ from repro.models.common import count_params as jcount
 from repro.models.common import init_params as jinit
 from repro_torch import convert
 from repro_torch.configs import ARCH_ORDER, get_config, get_smoke_config
-from repro_torch.models import api, common, lm
+from repro_torch.models import api, common
 from repro_torch.serve.engine import _write_slot
 
 ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
+NEW_ARCHS = ("deepseek-v2-lite-16b", "olmoe-1b-7b", "internvl2-76b",
+             "whisper-small")
+#: count_params at published widths, from JAX's tables
+PARAMS = {"granite-20b": 28_167_493_632, "granite-3-2b": 2_634_201_088,
+          "llama3.2-1b": 1_235_814_400, "qwen2-72b": 72_706_203_648,
+          "internvl2-76b": 70_620_815_360,
+          "deepseek-v2-lite-16b": 15_706_484_224,
+          "olmoe-1b-7b": 6_919_096_320, "rwkv6-7b": 7_577_014_272,
+          "recurrentgemma-2b": 3_549_934_080,
+          "whisper-small": 238_283_520}
 RTOL, ATOL = 1e-4, 1e-5
 CPU = "cpu"
 
@@ -89,7 +110,7 @@ def _close_bf16(got, want, what):
 # ---------------------------------------------------------------- tables
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCH_ORDER)
 def test_param_table_matches_jax(arch, smoke):
     jcfg = jget_smoke(arch) if smoke else jget_config(arch)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -101,20 +122,7 @@ def test_param_table_matches_jax(arch, smoke):
         assert tuple(got[name][1]) == tuple(want[name][1]), name
     assert common.count_params(got) == jcount(want)
     if not smoke:
-        expect = {"llama3.2-1b": 1_235_814_400,
-                  "rwkv6-7b": 7_577_014_272,
-                  "recurrentgemma-2b": 3_549_934_080}[arch]
-        assert common.count_params(got) == expect
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCH_ORDER if get_config(a).family
-                                  not in ("dense", "ssm", "hybrid")])
-def test_unported_family_raises(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="A11"):
-        api.param_table(cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        lm.LM(cfg, torch.float32, CPU)
+        assert common.count_params(got) == PARAMS[arch]
 
 
 @pytest.mark.parametrize("how", ["init_model", "init_params"])
@@ -147,13 +155,13 @@ def test_init_rules(how):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_convert_round_trip(arch, dtype):
     jcfg, cfg = _cfgs(arch)
-    params = jinit(jax.random.PRNGKey(1), japi.param_table(jcfg),
-                   dtype=jnp.bfloat16 if dtype == torch.bfloat16
-                   else jnp.float32)
-    d = {k: np.asarray(v.astype(jnp.float32)) for k, v in params.items()}
+    _, d = _jax_params(arch)
+    if dtype == torch.bfloat16:           # bf16-representable values
+        d = {k: torch.from_numpy(v).bfloat16().float().numpy()
+             for k, v in d.items()}
     model = convert.params_from_numpy(cfg, d, device=CPU, dtype=dtype)
     assert model.dtype == dtype
     back = convert.params_to_numpy(model)
@@ -164,14 +172,26 @@ def test_convert_round_trip(arch, dtype):
     # layer j of a scanned entry is slice j of the stacked array; an
     # unscanned layer holds its entry whole
     name = {"llama3.2-1b": "seg0.attn.wq", "rwkv6-7b": "seg0.tm.wr",
-            "recurrentgemma-2b": "seg0.p2.attn.wq"}[arch]
-    j = len(model.segs[0]) - 1
-    layer = model.segs[0][j].get_parameter(name[len("seg0."):])
+            "recurrentgemma-2b": "seg0.p2.attn.wq",
+            "olmoe-1b-7b": "seg0.moe.w_gate", "internvl2-76b": "seg0.attn.wq",
+            "deepseek-v2-lite-16b": "seg1.mla.w_uk",
+            "whisper-small": "dec.cross.wk"}[arch]
+    stack, key = name.split(".", 1)
+    layers = (model.dec if stack == "dec"
+              else model.segs[int(stack[len("seg"):])])
+    j = len(layers) - 1
+    layer = layers[j].get_parameter(key)
     np.testing.assert_array_equal(layer.float().numpy(), d[name][j])
-    if arch == "recurrentgemma-2b":
-        layer = model.segs[1][0].get_parameter("rg.w_in")
+    unscanned = {"recurrentgemma-2b": (1, "rg.w_in"),
+                 "deepseek-v2-lite-16b": (0, "mla.wq")}
+    if arch in unscanned:
+        seg, key = unscanned[arch]
+        layer = model.segs[seg][0].get_parameter(key)
         np.testing.assert_array_equal(layer.float().numpy(),
-                                      d["seg1.l0.rg.w_in"])
+                                      d[f"seg{seg}.l0.{key}"])
+    if arch == "internvl2-76b":
+        np.testing.assert_array_equal(
+            model.top.patch_proj.float().numpy(), d["patch_proj"])
     with pytest.raises(KeyError):
         convert.params_from_numpy(cfg, {**d, "bogus": d["embed"]},
                                   device=CPU)
@@ -182,21 +202,37 @@ def test_convert_round_trip(arch, dtype):
 @pytest.mark.parametrize("arch,gqa", [("llama3.2-1b", False),
                                       ("llama3.2-1b", True),
                                       ("rwkv6-7b", False),
-                                      ("recurrentgemma-2b", False)],
-                         ids=["llama", "llama-gqa", "rwkv", "rgemma"])
+                                      ("recurrentgemma-2b", False),
+                                      ("internvl2-76b", False),
+                                      ("whisper-small", False)],
+                         ids=["llama", "llama-gqa", "rwkv", "rgemma",
+                              "internvl2", "whisper"])
 def test_prefill_and_decode_match_jax(arch, gqa, mesh11, rules_decode):
     jcfg, cfg = _cfgs(arch, gqa)
     jparams, npd = _jax_params(arch, gqa)
     model = convert.params_from_numpy(cfg, npd, device=CPU,
                                       dtype=torch.float32)
-    b, s, max_seq = 2, 21, 29               # S not a multiple of q_block
+    b, s = 2, 21                            # S not a multiple of q_block
     toks = _tokens(cfg, b, s + 1, seed=7)
+    # the vlm's patch embeddings / whisper's frames, numpy f32
+    rng = np.random.default_rng(9)
+    extra = ({"patches": rng.standard_normal(
+        (b, cfg.n_patches, cfg.d_model)).astype(np.float32)}
+        if cfg.family == "vlm" else
+        {"frames": rng.standard_normal((b, s, cfg.d_model)).astype(
+            np.float32)} if cfg.family == "encdec" else {})
+    n_pre = s + cfg.n_patches                 # prefill positions
+    max_seq = n_pre + 8
     with mesh11:
-        jlogits, jcaches = japi.prefill(
-            jcfg, rules_decode, jparams, {"tokens": jnp.asarray(toks[:, :s])})
+        jlogits, jcaches = jax.jit(functools.partial(
+            japi.prefill, jcfg, rules_decode))(
+                jparams, {"tokens": jnp.asarray(toks[:, :s]),
+                          **{k: jnp.asarray(v) for k, v in extra.items()}})
     with torch.inference_mode():
         logits, caches = api.prefill(
-            cfg, model, {"tokens": torch.from_numpy(toks[:, :s]).long()})
+            cfg, model, {"tokens": torch.from_numpy(toks[:, :s]).long(),
+                         **{k: torch.from_numpy(v)
+                            for k, v in extra.items()}})
     assert logits.shape == (b, 1, cfg.vocab_size)
     assert logits.dtype == torch.float32
     _close(logits, jlogits, "prefill logits")
@@ -222,13 +258,14 @@ def test_prefill_and_decode_match_jax(arch, gqa, mesh11, rules_decode):
     jfull = _tree_like(jfull, full)
     step = toks[:, s:]
     with mesh11:
+        # eager: jitted, XLA keeps bf16 intermediates in f32
         jlogits2, jcaches2 = japi.decode_step(
             jcfg, rules_decode, jparams, jfull,
-            {"tokens": jnp.asarray(step), "index": jnp.int32(s)})
+            {"tokens": jnp.asarray(step), "index": jnp.int32(n_pre)})
     with torch.inference_mode():
         logits2, caches2 = api.decode_step(
             cfg, model, full, {"tokens": torch.from_numpy(step).long(),
-                               "index": s})
+                               "index": n_pre})
     _close(logits2, jlogits2, "decode logits")
     flat2 = _flat(caches2)
     for name, want in _flat(jcaches2).items():

@@ -1,17 +1,24 @@
 """The port's serving engine and CLI (``repro_torch.serve``,
 ``repro_torch.launch.serve``) against the JAX package's.
 
-* ``ServingEngine`` in both packages on llama3.2-1b, rwkv6-7b and
-  recurrentgemma-2b smoke configs with the same float32 weights (JAX's
-  ``init_params``, carried across with ``convert``): 10 requests of
-  uneven prompt lengths, 3 slots, ``max_seq=32``; for recurrentgemma
+* ``ServingEngine`` in both packages on llama3.2-1b, rwkv6-7b,
+  recurrentgemma-2b, olmoe-1b-7b, deepseek-v2-lite-16b and whisper-small
+  smoke configs with the same weights (JAX's ``init_params``, carried
+  across with ``convert``; float32, but bfloat16 for whisper, whose
+  reference engine fails on float32 weights: C16): 10 requests of
+  uneven prompt lengths (two lengths for the three new families), 3
+  slots, ``max_seq=32``; for recurrentgemma
   also 6 requests of 20 and 27 tokens, longer than its smoke window of
-  16, so that the local layer's prefill ring and decode ring wrap.  Per request, ``output``, ``first_token_t`` and
-  ``finish_t`` are equal.  A token stream that parts from JAX's would
-  pass only if the port's own top-1 minus top-2 logit gap at the first
-  differing token were below ``LOGIT_TOL`` (a near tie that float32
-  summation order can flip) and the pair were listed in ``DIVERGENCES``;
-  none was found, so the list is empty.
+  16, so that the local layer's prefill ring and decode ring wrap.
+  Whisper's prefills get zero frames of the prompt's length and its
+  decode attends over each slot's zero-padded cross cache (C16); the MoE
+  prefills drop choices at capacity.  Per request, ``output``,
+  ``first_token_t`` and ``finish_t`` are equal.  A token stream that
+  parts from JAX's passes only if the port's own top-1 minus top-2 logit
+  gap at the first differing token is below ``LOGIT_TOL`` (a near tie
+  that summation order can flip) and the pair is listed in
+  ``DIVERGENCES``.  One is: whisper's request 0 at its 6th token, a gap
+  of 6.1e-5, one bf16 step of its logits (the other 9 streams equal).
 * The admission override of ``tests/test_substrate.py`` (one slot,
   shortest prompt first): same admission order and outputs.  Its
   shortest prompt has 2 tokens, 3 for recurrentgemma: the reference's
@@ -27,10 +34,17 @@
   conv's history too), a slot past the end, one slot, one-token prompts:
   bitwise.
 * ``python -m repro_torch.launch.serve --smoke --device cpu`` prints the
-  reference driver's two lines, for every arch.
+  reference driver's two lines, for every arch but internvl2-76b.
+* C15: the reference engine feeds a vlm prefill no patch embeddings and
+  fails with ``KeyError('patches')``; the port's engine and CLI refuse
+  the config, naming C15.
+* ``python -m repro_torch.examples.serve_twin --device cpu`` prints the
+  reference ``examples/serve_twin.py``'s four lines.
 """
 import functools
+import pathlib
 import re
+import runpy
 
 import jax
 import jax.numpy as jnp
@@ -46,25 +60,36 @@ from repro.serve import ServingEngine as JEngine
 from repro.serve.engine import _write_slot as jwrite_slot
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
+from repro_torch.examples import serve_twin
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api
 from repro_torch.serve import Request, ServingEngine
 from repro_torch.serve.engine import _write_slot
 
 ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
+NEW_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b", "whisper-small")
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOGIT_TOL = 1e-3
-DIVERGENCES = {}          # (arch, req_id): first differing token index
+DIVERGENCES = {("whisper-small", 0): 5}   # (arch, req_id): first
+#                                            differing token index
+
+
+#: Whisper serves in bf16: with f32 weights the reference engine's bf16
+#: stub frames turn its encoder scan's carry f32, which the scan refuses
+#: (ROADMAP C16)
+BF16_ARCHS = ("whisper-small",)
 
 
 @functools.lru_cache(maxsize=None)
 def _weights(arch):
     jcfg = jget_smoke(arch)
+    bf16 = arch in BF16_ARCHS
     params = jinit(jax.random.PRNGKey(0), japi.param_table(jcfg),
-                   dtype=jnp.float32)
+                   dtype=jnp.bfloat16 if bf16 else jnp.float32)
     model = convert.params_from_numpy(
-        get_smoke_config(arch), {k: np.asarray(v) for k, v in
-                                 params.items()},
-        device="cpu", dtype=torch.float32)
+        get_smoke_config(arch), {k: np.asarray(v.astype(jnp.float32))
+                                 for k, v in params.items()},
+        device="cpu", dtype=torch.bfloat16 if bf16 else torch.float32)
     return jcfg, params, model
 
 
@@ -85,8 +110,10 @@ def _serve(engine, request_cls, prompts, max_new):
 
 @pytest.mark.parametrize("arch,n,lengths,max_seq", [
     *((arch, 10, (3, 6, 11, 15), 32) for arch in ARCHS),
+    # two prompt lengths: each is a compile of the reference's prefill
+    *((arch, 10, (5, 13), 32) for arch in NEW_ARCHS),
     ("recurrentgemma-2b", 6, (20, 27), 48)],
-    ids=[*ARCHS, "recurrentgemma-2b-long"])
+    ids=[*ARCHS, *NEW_ARCHS, "recurrentgemma-2b-long"])
 def test_engine_matches_jax(arch, n, lengths, max_seq, mesh11, rules_decode):
     jcfg, params, model = _weights(arch)
     cfg = get_smoke_config(arch)
@@ -175,7 +202,7 @@ def test_write_slot_matches_jax(big, small, slot):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_cli_prints_two_lines(arch, capsys):
     tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                  "--requests", "5", "--slots", "2", "--max-seq", "24",
@@ -217,3 +244,35 @@ def test_short_prompt(mesh11, rules_decode):
     assert conv.shape == (1, 3, 64)
     np.testing.assert_allclose(step["seg1.l0"]["conv"].numpy(),
                                conv.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_vlm_refused_by_both_engines(mesh11, rules_decode):
+    """C15: the JAX engine's prefill of a vlm request fails for want of
+    patch embeddings; the port refuses the config up front."""
+    jcfg = jget_smoke("internvl2-76b")
+    cfg = get_smoke_config("internvl2-76b")
+    params = jinit(jax.random.PRNGKey(0), japi.param_table(jcfg),
+                   dtype=jnp.float32)
+    with mesh11:
+        jeng = JEngine(jcfg, rules_decode, params, batch_slots=2,
+                       max_seq=24)
+        jeng.submit(JRequest(req_id=0, prompt=np.arange(5, dtype=np.int32),
+                             max_new_tokens=2))
+        with pytest.raises(KeyError, match="patches"):
+            jeng.run_until_drained()
+    model = api.init_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="C15"):
+        ServingEngine(cfg, model, batch_slots=2, max_seq=24, device="cpu")
+    with pytest.raises(SystemExit, match="C15"):
+        tserve.main(["--arch", "internvl2-76b", "--smoke", "--device",
+                     "cpu"])
+
+
+def test_serve_twin_prints_the_reference_report(capsys):
+    runpy.run_path(str(ROOT / "examples" / "serve_twin.py"),
+                   run_name="__main__")
+    want = capsys.readouterr().out
+    serve_twin.main(["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert len(want.splitlines()) == 4
+    assert got == want
