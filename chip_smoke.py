@@ -53,8 +53,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      the plain versions (``--backend reference``): first-token logits
      within ``LOGIT_TOL``, token streams equal or each divergence a near
      tie; tokens/s, prefill and decode times, K4 launches (16 a prefill);
- 10. rwkv6-7b at full width the same way: 4 requests of 128-768
-     tokens, 2 slots, max_seq 1024, 8 new tokens; K3 launches;
+ 10. rwkv6-7b at full width, cut to 16 of its 32 layers, the same way:
+     4 requests of 128-768 tokens, 2 slots, max_seq 1024, 8 new tokens;
+     K3 launches (16 a prefill);
  11. recurrentgemma-2b at full width the same way: 4 requests of
      256-3072 tokens (one at least past the 2048-token window), 2 slots,
      max_seq 4096, 8 new tokens; K2 (18 a prefill and 18 a decode step,
@@ -62,7 +63,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      Each serving phase's profile counts PyTorch's elementwise kernels
      in a prefill and a decode step;
  12. a Polaris-scale replay grid through ``DrainEngine.replay_grid``: 8
-     scenarios of 1,000 heavy-tailed Poisson jobs on 560 nodes (J=1024)
+     scenarios of 500 heavy-tailed Poisson jobs on 560 nodes (J=1024)
      x the k=32 DRAS pool = 256 forks, goal ``score``, K1 in every step.
      Bitwise against ``backend="reference"`` on the card (times,
      deadlocks, events, iterations, passes, costs, winners; K1 never
@@ -131,7 +132,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      block_size=64)`` (4 blocks of 2,048 forks) at prefetch depths 2 and
      0: every field bitwise; walls, peak device memory
      (``max_memory_allocated``, reset before each run), K1 launches and
-     host reads of each; K1 on the 1,001st pass of the one-shot grid
+     host reads of each; K1 on the 501st pass of the one-shot grid
      (k=8,192) and of the stream's first block (k=2,048) bitwise its
      plain version, with its time and bound; the first 16 scenarios
      replayed by the ``reference`` backend on the card bitwise the
@@ -159,7 +160,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      dispatches on the hidden states a 1024-token prefill hands layer
      0's MoE (``moe_dropped`` and aux terms equal, GShard within 3% of
      gather with C17's summed gates, the times); (b)
-     deepseek-v2-lite-16b the same way (MLA prefill runs the plain
+     deepseek-v2-lite-16b, cut to 14 of its 27 layers, the same way (MLA
+     prefill runs the plain
      attention: K4 0 launches), then MLA's absorbed decode at S=512
      against the decompressed prefill of 513; (c) internvl2-76b cut to 8
      of its 80 layers: 256 random patch embeddings and 2 prompts of
@@ -175,7 +177,37 @@ Phases (each prints its own lines; any failure exits non-zero):
      only where the prefill's routers first part at a near tie (ranks k
      and k + 1 within 1% of each other) and the kernels' prefill, rerun
      with every router forced to the plain run's experts, comes back
-     within ``LOGIT_TOL``; both are printed.
+     within ``LOGIT_TOL``; both are printed;
+ 17. LM training on the card (no kernel on its path: none has a
+     backward, and K2-K4's counts must not move): (a) llama3.2-1b at
+     published widths and full depth (1,235,814,400 parameters drawn on
+     the card as the JAX package draws them, bf16, f32 moments), global
+     batch 8 x 1024 tokens in 2 microbatches, AdamW peak 3e-3, warmup 1,
+     8 steps: 8 steps on fresh ``SyntheticLM`` batches (finite losses;
+     wall a step, tokens/s, peak memory, the share of dense bf16 peak, a
+     traced step), then 8 steps on one batch repeated from the same
+     weights (the mean loss of steps 7-8 below step 1's); (b) one f32
+     step of llama3.2-1b cut to 2 of 16 layers, batch 2 x 256, on cuda
+     and on cpu from the same weights: loss and grad norm within rtol
+     1e-5, gradients and moments within 1e-4 of their tensor's max |x|,
+     parameters within 1e-4 of max |p| where |g| >= 1e-3 max |g| and
+     within 2·lr anywhere; (c) one bf16 step of olmoe-1b-7b and
+     deepseek-v2-lite-16b (2 layers), rwkv6-7b (2 of 32 layers, 256
+     tokens), recurrentgemma-2b (one pattern period, 3 of 26 layers),
+     internvl2-76b (2 of 80 layers, 256 zero patches) and whisper-small
+     (whole, 1500 zero frames), each freed before the next: finite loss,
+     grad norm finite and > 0, the MoE's aux terms in the total; (d)
+     ``quantize`` on the card bitwise the CPU's on (b)'s cut model's
+     gradients, and one ``--compress`` step; (e) ``python -m
+     repro_torch.launch.train --arch llama3.2-1b --smoke --steps 20
+     --log-every 5`` on cuda and cpu (losses within 2e-3, grad norms
+     within 5e-3, learning rates equal), checkpointed at steps 10 and 20
+     under ``build/``, relaunched from step 10: the uninterrupted run's
+     lines for steps 15 and 20.  To make room for it (and for drawing
+     the reference's weights on the card), phases 10 and 16 (b) serve
+     rwkv6-7b and deepseek-v2-lite-16b at half depth, and the Polaris
+     trace family that phases 12-15 replay holds 500 jobs a trace (was
+     1,000): about 1,000 host steps a replay instead of 2,000.
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1219,6 +1251,10 @@ DEVICE_KERNEL = {"repro_torch.kernels.flash_attention": "flash_wgmma_kernel",
 #: versions' first-token logits at full width in bf16, and the top-2 gap
 #: below which a greedy pick may legitimately flip between the two.
 LOGIT_TOL = 0.125
+RWKV_LAYERS = 16             # phase 10: rwkv6-7b cut from 32 layers (and
+#                              deepseek below from 27) since drawing the
+#                              reference's weights on the card and phase
+#                              17 took the time
 
 
 def serve_requests(cfg, n, lo, hi, max_new, seed):
@@ -1262,8 +1298,9 @@ def run_engine(torch, cfg, model, reqs, slots, max_seq, backend):
 
 
 def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
-                max_new, min_longest=0, extra=None):
-    """Serve ``arch`` at full width (random bf16 weights from seed 0)
+                max_new, min_longest=0, extra=None, layers=None):
+    """Serve ``arch`` at full width (random bf16 weights from seed 0;
+    ``layers``: the depth, cut from the published one when given)
     with the kernels, then the same requests with the plain versions;
     first-token logits within LOGIT_TOL (for a MoE model, or within it
     once the routers are forced to the plain run's experts, after a
@@ -1279,6 +1316,9 @@ def serve_phase(torch, arch, kernels, n_req, slots, max_seq, lo, hi,
     from repro_torch.serve.engine import prefill_batch
     cfg = get_config(arch)
     tag = f"[serve {arch}]"
+    if layers is not None:
+        print(f"{tag} cut to {layers} of its {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     t_model = t0 = time.perf_counter()
     model = api.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1391,7 +1431,11 @@ def profile_serve(torch, cfg, model, reqs, slots, max_seq, tag, keys):
 
 # --------------------------------------------------------------- phase 12
 REPLAY_SCENARIOS = 8         # S: eight arrival streams of one family
-REPLAY_JOBS = 1000           # jobs per trace (J = 1024 slots)
+REPLAY_JOBS = 500            # jobs per trace (J = 1024 slots); cut from
+#                              1,000 (2,000 replay steps) to 500 (~1,000)
+#                              since drawing the reference's weights and
+#                              phase 17 took the time: phases 12-15 replay
+#                              this family, one host step a K1 launch
 REPLAY_GAP = 100.0           # mean inter-arrival, s: offered load ~0.85
 
 
@@ -1460,7 +1504,7 @@ def replay_cli(device):
 
 def replay_phase(torch, pe, snapshot):
     """A Polaris-scale replay grid through ``DrainEngine.replay_grid``:
-    S=8 arrival streams of 1,000 jobs x the k=32 DRAS pool (256 forks,
+    S=8 arrival streams of 500 jobs x the k=32 DRAS pool (256 forks,
     J=1024), with K1 as the pass, held bitwise against the reference
     backend on the card and against the port's host emulator on two
     (scenario, policy) pairs; a block of iterations under
@@ -2495,7 +2539,7 @@ FLEET_BLOCK = 64             # scenarios a block: 4 blocks of 2,048 forks
 FLEET_DEPTH = 2              # prefetch depth (and 0, the ablation)
 FLEET_SUB = (16, 8)          # (b): the first 16 scenarios, blocks of 8;
 #                              (a) holds them against the reference backend
-FLEET_PASS = 1000            # (a): K1 checked on this launch (0-based) of
+FLEET_PASS = 500             # (a): K1 checked on this launch (0-based) of
 #                              the one-shot grid and of the stream's block 0
 FLEET_FAN_BLOCK = 4          # (c): pseudo-scenarios a block of the fan
 FLEET_RACE_BLOCK = 8         # (c): window rows a block of the race
@@ -2506,7 +2550,7 @@ LEGACY_RTOL = 1e-5           # (d): the legacy decide's costs against decide
 
 
 def fleet_scenarios():
-    """(a)'s grid: ``poisson_trace(1000, 560, 100.0, (1, 11), (300.0,
+    """(a)'s grid: ``poisson_trace(500, 560, 100.0, (1, 11), (300.0,
     86400.0), seed=s, heavy_tail=True)`` for s in 0..255 (phase 12's
     eight are the first), J=1024."""
     from repro_torch.cluster.workload import poisson_trace, stack_scenarios
@@ -3251,6 +3295,7 @@ def k2_phases(torch):
 # --------------------------------------------------------------- phase 16
 FAMILY_SERVE = dict(n_req=4, slots=2, lo=128, hi=1024, max_new=8)
 FAMILY_MAX_SEQ = 1280
+DEEPSEEK_LAYERS = 14         # (b): deepseek-v2-lite-16b cut from 27 layers
 VLM_LAYERS = 8               # (c): internvl2-76b cut from 80 layers
 VLM_PROMPTS = (2, 128, 768)  # (c): prompts, shortest and longest
 VLM_STEPS = 8                # (c): decode steps a prompt
@@ -3644,7 +3689,7 @@ def family_phase(torch, fa):
     launches["deepseek-v2-lite-16b"] = serve_phase(
         torch, "deepseek-v2-lite-16b", {fa: (0, 0)}, max_seq=FAMILY_MAX_SEQ,
         extra=lambda cfg, model: mla_decode_check(torch, cfg, model),
-        **FAMILY_SERVE)[fa]
+        layers=DEEPSEEK_LAYERS, **FAMILY_SERVE)[fa]
     launches["internvl2-76b"] = vlm_phase(torch, fa)
     launches["whisper-small"] = serve_phase(
         torch, "whisper-small", {fa: (36, 0)}, **WHISPER_SERVE)[fa]
@@ -3652,6 +3697,402 @@ def family_phase(torch, fa):
     launches["serve_twin"] = serve_twin_check(torch, fa)
     print(f"[families] phase 16: {time.perf_counter() - t_phase:.1f} s")
     return launches, audio
+
+
+# --------------------------------------------------------------- phase 17
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 1024, 2
+TRAIN_OPT = dict(peak_lr=3e-3, warmup_steps=1, total_steps=8)
+BF16_PEAK = 989e12           # H100 SXM dense bf16, FLOP/s (data sheet)
+PARITY_LAYERS = 2            # (b), (d): llama3.2-1b cut from 16 layers
+PARITY_BATCH, PARITY_SEQ = 2, 256
+PARITY_RTOL = 1e-5           # (b): loss and grad norm, cuda against cpu
+PARITY_SCALE = 1e-4          # (b): each tensor's max |diff| over max |x|
+#: (c): arch, the cut (``reduced``-style overrides), batch, tokens, and
+#: the encoder's frames (whisper) or the vlm's patches
+FAMILY_TRAIN = (
+    ("olmoe-1b-7b", dict(n_layers=2), 2, 512, 0),          # of 16 layers
+    ("deepseek-v2-lite-16b", dict(n_layers=2), 2, 512, 0),  # of 27
+    ("rwkv6-7b", dict(n_layers=2), 2, 256, 0),             # of 32
+    ("recurrentgemma-2b", dict(n_layers=3), 2, 512, 0),    # one period of 26
+    ("internvl2-76b", dict(n_layers=2), 2, 512, 256),      # of 80; patches
+    ("whisper-small", {}, 2, 448, 1500),                   # whole; frames
+)
+LM_TRAIN_CLI = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "20",
+             "--log-every", "5"]
+CLI_LOSS_TOL, CLI_GNORM_TOL = 2e-3, 5e-3   # tests/test_torch_train_cli.py's
+
+
+def train_batch(cfg, batch, seq, seed, extra=0):
+    """A ``SyntheticLM`` batch, with ``extra`` zero bf16 patches (vlm) or
+    frames (encdec), as the training CLI feeds them."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    out = dict(SyntheticLM(DataConfig(cfg.vocab_size, seq, batch,
+                                      seed=seed)).batch(0))
+    if cfg.family == "vlm":
+        out["patches"] = torch.zeros((batch, extra, cfg.d_model),
+                                     dtype=torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = torch.zeros((batch, extra, cfg.d_model),
+                                    dtype=torch.bfloat16)
+    return out
+
+
+def kernel_counts():
+    from repro_torch.kernels import flash_attention, rglru, wkv6
+    return flash_attention.LAUNCHES, rglru.LAUNCHES, wkv6.LAUNCHES
+
+
+def init_state(torch, cfg, tag, **kw):
+    from repro_torch.train import init_train_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in state.params.values())
+    print(f"{tag} {n:,} params ({kw.get('dtype', torch.bfloat16)}) drawn "
+          f"on the card (the reference's init_params, threefry) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return state, n
+
+
+def train_steps(torch, step, state, batches, tag, what):
+    """``step`` over ``batches``, each timed (host clock, ending in the
+    loss's read); returns (losses, walls, state)."""
+    losses, walls = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        print(f"{tag} {what} step {i + 1} loss {losses[-1]:.4f} lr "
+              f"{float(m['lr']):.2e} gnorm {float(m['grad_norm']):.3f} "
+              f"wall {walls[-1]:.3f} s")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{tag} non-finite loss: {losses}")
+    return losses, walls, state
+
+
+def train_full(torch):
+    """(a) llama3.2-1b at published widths and full depth, bf16
+    parameters and f32 moments, ``make_train_step`` with global batch 8 x
+    1024 and accum 2: 8 steps on fresh ``SyntheticLM`` batches (finite
+    losses; wall a step, tokens/s, peak memory, a traced step, the share
+    of dense bf16 peak), then, from the same initial weights, 8 steps on
+    one of those batches repeated: the loss must fall (mean of steps 7-8
+    below step 1).  Fresh batches carry no signal a 1.2B-parameter model
+    can take in 8 steps at a 128,256-token vocabulary: their loss stays
+    at ln V or, at this learning rate, rises."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import OptimizerConfig, make_train_step
+    tag = "[train llama3.2-1b]"
+    cfg = get_config(TRAIN_ARCH)
+    state, n = init_state(torch, cfg, tag)
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT),
+                           accum_steps=TRAIN_ACCUM, device="cuda")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0))
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    fresh, walls, state = train_steps(torch, step, state, batches, tag,
+                                      "fresh batches:")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = statistics.mean(walls[1:])
+    flops = 8 * n * tokens      # 6·N·T, plus remat's extra forward 2·N·T
+    print(f"{tag} steps 2-{TRAIN_STEPS}: {wall:.3f} s a step (min "
+          f"{min(walls[1:]):.3f}, max {max(walls[1:]):.3f}), "
+          f"{tokens / wall:,.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.1f} GiB; 8·N·T = {flops:.3e} FLOP a step, "
+          f"{100.0 * flops / wall / BF16_PEAK:.1f}% of dense bf16 peak "
+          f"(989 TFLOP/s at 700 W)")
+    holder = [state]
+
+    def one():
+        holder[0], metrics = step(holder[0], batches[0])
+        return float(metrics["loss"])
+
+    trace = traced(torch, one, tag, "one train step",
+                   ("gemm", "nvjet", "elementwise"))
+    del holder, state
+    torch.cuda.empty_cache()
+    state, _ = init_state(torch, cfg, tag)
+    same, _, state = train_steps(torch, step, state,
+                                 [batches[0]] * TRAIN_STEPS, tag,
+                                 "one batch repeated:")
+    if statistics.mean(same[-2:]) >= same[0]:
+        raise SystemExit(f"{tag} the loss did not fall: {same}")
+    print(f"{tag} loss on one batch: {same[0]:.4f} -> "
+          f"{statistics.mean(same[-2:]):.4f} (mean of steps 7-8); fresh "
+          f"batches: {fresh[0]:.4f} -> {statistics.mean(fresh[-2:]):.4f}")
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(fresh_losses=fresh, same_batch_losses=same, wall_s=wall,
+                tokens_s=tokens / wall, peak_gib=peak / 2**30,
+                bf16_share=flops / wall / BF16_PEAK,
+                busy_us=trace["busy_us"], kernels=trace["kernels"],
+                wall_traced_us=trace["wall_us"])
+
+
+def _grads(torch, cfg, params, batch, device):
+    """(loss, {name: gradient}) of one batch on ``device``."""
+    from repro_torch.models import api
+    from repro_torch.train.train_step import batch_on
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss, _ = api.train_loss(cfg, leaves,
+                             batch_on(batch, torch.device(device)))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def worst_scaled(a, b, where=None):
+    """max over tensors of max |a - b| / max |b| (b on the CPU), over the
+    elements ``where[name]`` marks when given; returns (that, name)."""
+    worst = (0.0, "")
+    for k in b:
+        scale = float(b[k].detach().abs().max()) or 1.0
+        d = (a[k].detach().cpu() - b[k].detach()).abs()
+        if where is not None:
+            d = d[where[k]]
+        worst = max(worst, (float(d.max()) / scale if d.numel() else 0.0, k))
+    return worst
+
+
+def train_parity(torch):
+    """(b) one step of llama3.2-1b's published widths cut to 2 of 16
+    layers, f32 (TF32 off), batch 2 x 256, on the card and on the CPU
+    from the same weights (drawn on the card, copied): loss and grad
+    norm within rtol 1e-5; every gradient and both moments after the
+    step within 1e-4 of their tensor's max |x|; the parameters within
+    1e-4 of max |p| wherever |g| is at least 1e-3 of its tensor's max
+    |g|.  Below that, AdamW's first step, lr·g/(|g| + eps), magnifies
+    the card's and the CPU's last-bit gradient differences (for |g| near
+    eps up to lr itself): there the parameters must be within 2·lr,
+    the bound of one step's update."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train import (OptimizerConfig, TrainState,
+                                   make_train_step)
+    from repro_torch.train.optimizer import init_opt_state, lr_at
+    tag = "[train parity]"
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PARITY_LAYERS)
+    gpu, _ = init_state(torch, cfg, tag, dtype=torch.float32)
+    params = {k: v.detach().to("cpu", copy=True).requires_grad_(True)
+              for k, v in gpu.params.items()}
+    cpu = TrainState(params, init_opt_state(params), None)
+    batch = train_batch(cfg, PARITY_BATCH, PARITY_SEQ, seed=5)
+    t0 = time.perf_counter()
+    loss_g, grads_g = _grads(torch, cfg, gpu.params, batch, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_c, grads_c = _grads(torch, cfg, cpu.params, batch, "cpu")
+    t2 = time.perf_counter()
+    g_err, g_key = worst_scaled(grads_g, grads_c)
+    firm = {k: g.abs() >= 1e-3 * g.abs().max() for k, g in grads_c.items()}
+    del grads_g, grads_c
+    opt = OptimizerConfig(**TRAIN_OPT)
+    gpu, m_g = make_train_step(cfg, opt, accum_steps=1,
+                               device="cuda")(gpu, batch)
+    cpu, m_c = make_train_step(cfg, opt, accum_steps=1,
+                               device="cpu")(cpu, batch)
+    lr = float(lr_at(opt, torch.tensor(1)))
+    errs = {what: worst_scaled(a, b, mask) for what, a, b, mask in (
+        ("params", gpu.params, cpu.params, firm),
+        ("mu", gpu.opt.mu, cpu.opt.mu, None),
+        ("nu", gpu.opt.nu, cpu.opt.nu, None))}
+    p_abs = max(float((gpu.params[k].detach().cpu() - p.detach()).abs()
+                      .max()) for k, p in cpu.params.items())
+    n_firm = sum(int(m.sum()) for m in firm.values())
+    n_all = sum(m.numel() for m in firm.values())
+    rel = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k]))
+           for k in ("loss", "grad_norm")}
+    print(f"{tag} loss cuda {float(loss_g):.7f} cpu {float(loss_c):.7f}; "
+          f"step: loss rel diff {rel['loss']:.2e}, grad norm "
+          f"{float(m_g['grad_norm']):.6f} / {float(m_c['grad_norm']):.6f} "
+          f"(rel {rel['grad_norm']:.2e}); gradients: worst {g_err:.2e} of "
+          f"max |g| ({g_key}); after the step: "
+          + ", ".join(f"{w} {e:.2e} ({k})" for w, (e, k) in errs.items())
+          + f" (params over the {n_firm:,} of {n_all:,} elements with |g| "
+          f">= 1e-3 max |g|; over all: max |diff| {p_abs:.2e}, limit "
+          f"2·lr = {2 * lr:.1e}); forward+backward cuda {t1 - t0:.2f} s, "
+          f"cpu {t2 - t1:.2f} s")
+    if (max(rel.values()) > PARITY_RTOL or g_err > PARITY_SCALE
+            or any(e > PARITY_SCALE for e, _ in errs.values())
+            or p_abs > 2 * lr):
+        raise SystemExit(f"{tag} cuda and cpu part past the limits")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(loss_rel=rel["loss"], grad_norm_rel=rel["grad_norm"],
+                grad_scaled=g_err, params_abs=p_abs,
+                **{f"{w}_scaled": e for w, (e, _) in errs.items()})
+
+
+def train_families(torch):
+    """(c) one bf16 step of each other family, cut as ``FAMILY_TRAIN``
+    says, each model freed before the next: loss finite, grad norm
+    finite and > 0; the MoE's aux terms finite and in the total."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptimizerConfig, make_train_step
+    out = {}
+    for arch, cut, b, s, extra in FAMILY_TRAIN:
+        tag = f"[train {arch}]"
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        what = "patches" if cfg.family == "vlm" else "frames"
+        print(f"{tag} cut: {cut or 'whole'}; batch {b} x {s} tokens"
+              + (f", {extra} zero {what}" if extra else ""))
+        state, n = init_state(torch, cfg, tag)
+        step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT),
+                               accum_steps=1, device="cuda")
+        batch = train_batch(cfg, b, s, seed=1, extra=extra)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        wall = time.perf_counter() - t0
+        line = (f"{tag} loss {m['loss']:.4f} (xent {m['xent']:.4f}) grad "
+                f"norm {m['grad_norm']:.4f}, wall {wall:.2f} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        ok = (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              and m["grad_norm"] > 0)
+        if cfg.family == "moe":
+            line += (f"; moe_aux {m['moe_aux']:.4e} moe_z {m['moe_z']:.4e} "
+                     f"moe_dropped {m['moe_dropped']:.0f}")
+            total = m["xent"] + m["moe_aux"] + m["moe_z"]
+            ok = ok and all(math.isfinite(m[k]) for k in ("moe_aux", "moe_z"))
+            ok = ok and abs(m["loss"] - total) <= 1e-6 * abs(total)
+        print(line)
+        if not ok:
+            raise SystemExit(f"{tag} failed: {m}")
+        out[arch] = dict(loss=m["loss"], grad_norm=m["grad_norm"],
+                         wall_s=wall, params=n)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_compress(torch):
+    """(d) ``--compress`` on (b)'s cut model in bf16: ``quantize`` on the
+    card bitwise ``quantize`` on the CPU on the same f32 gradients (every
+    tensor's), then one compressed step; ``compression_err``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import compression
+    tag = "[train compress]"
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PARITY_LAYERS)
+    state, _ = init_state(torch, cfg, tag, compress=True)
+    batch = train_batch(cfg, PARITY_BATCH, PARITY_SEQ, seed=6)
+    _, grads = _grads(torch, cfg, state.params, batch, "cuda")
+    n = differ = 0
+    for g in grads.values():
+        g = g.float()
+        a, b = compression.quantize(g), compression.quantize(g.cpu())
+        n += g.numel()
+        differ += int((a.q.cpu() != b.q).sum()) + int(
+            (a.scale.cpu().view(torch.int32) != b.scale.view(torch.int32))
+            .sum())
+    del grads
+    state, m = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT),
+                               compress=True, accum_steps=1,
+                               device="cuda")(state, batch)
+    err = float(m["compression_err"])
+    print(f"{tag} quantize card vs cpu: {differ} of {n:,} gradient "
+          f"elements and scales differ; one compressed step: loss "
+          f"{float(m['loss']):.4f}, compression_err {err:.3e}")
+    if differ or not math.isfinite(err) or not math.isfinite(
+            float(m["loss"])):
+        raise SystemExit(f"{tag} failed")
+    del state
+    torch.cuda.empty_cache()
+    return dict(quantize_differing=differ, compression_err=err)
+
+
+def train_cli_run(argv):
+    """``repro_torch.launch.train`` in this process: (stdout, wall)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(argv)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_lines(out):
+    """{step: (loss, lr, gnorm)} of the CLI's log lines."""
+    rows = {}
+    for line in out.splitlines():
+        f = line.split()
+        if f[:1] == ["step"] and "loss" in f:
+            rows[int(f[1])] = (float(f[3]), f[5], float(f[7]))
+    return rows
+
+
+def cli_agree(got, want, steps):
+    got, want = cli_lines(got), cli_lines(want)
+    if sorted(got) != list(steps) or sorted(want) != list(steps):
+        return False, float("inf")
+    worst = max(abs(got[s][0] - want[s][0]) for s in steps)
+    ok = all(abs(got[s][0] - want[s][0]) <= CLI_LOSS_TOL
+             and got[s][1] == want[s][1]
+             and abs(got[s][2] - want[s][2]) <= CLI_GNORM_TOL
+             for s in steps)
+    return ok, worst
+
+
+def train_cli_phase():
+    """(e) the CLI at smoke size on cuda and cpu: the same lines within
+    the tests' bf16 tolerance; a run checkpointed at steps 10 and 20
+    under ``build/``, step 20's checkpoint removed and relaunched,
+    prints the uninterrupted run's lines for steps 15 and 20."""
+    import shutil
+    tag = "[train cli]"
+    ckpt = os.path.join(WORK, "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with_ckpt = ["--ckpt-dir", ckpt, "--ckpt-every", "10"]
+    cuda, wall_g = train_cli_run(LM_TRAIN_CLI + with_ckpt)
+    cpu, wall_c = train_cli_run(LM_TRAIN_CLI + ["--device", "cpu"])
+    ok, worst = cli_agree(cuda, cpu, (5, 10, 15, 20))
+    print(f"{tag} python -m repro_torch.launch.train "
+          f"{' '.join(LM_TRAIN_CLI)}: cuda {wall_g:.1f} s, cpu "
+          f"{wall_c:.1f} s; "
+          f"losses within {worst:.1e} (limit {CLI_LOSS_TOL}): "
+          f"{'agree' if ok else 'DIFFER'}; cuda's last step: "
+          f"{cuda.strip().splitlines()[-2]}")
+    shutil.rmtree(os.path.join(ckpt, "step_000000020"))
+    resumed, _ = train_cli_run(LM_TRAIN_CLI + with_ckpt)
+    r_ok, r_worst = cli_agree(resumed, cuda.split("step    10")[1], (15, 20))
+    same = all(cli_lines(resumed)[s] == cli_lines(cuda)[s] for s in (15, 20))
+    print(f"{tag} relaunched on the step-10 checkpoint: "
+          f"{'restored checkpoint at step 10' in resumed}; steps 15 and 20 "
+          f"{'identical to' if same else f'within {r_worst:.1e} of'} the "
+          f"uninterrupted run's")
+    if not (ok and r_ok and "restored checkpoint at step 10" in resumed):
+        raise SystemExit(f"{tag} failed:\n{cuda}\n{cpu}\n{resumed}")
+    return dict(cuda_cpu_worst_loss=worst, resume_identical=same)
+
+
+def lm_training_phase(torch):
+    """Phase 17: LM training on the card (no kernel on its path: the
+    counts of K2, K3 and K4 must not move)."""
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    out = dict(full=train_full(torch), parity=train_parity(torch),
+               families=train_families(torch),
+               compress=train_compress(torch), cli=train_cli_phase())
+    if kernel_counts() != before:
+        raise SystemExit(f"[train] a kernel launched on the training path: "
+                         f"{before} -> {kernel_counts()}")
+    print(f"[train] phase 17: {time.perf_counter() - t_phase:.1f} s; "
+          f"no kernel launched (K4, K2, K3 counts unmoved)")
+    return out
 
 
 def main() -> int:
@@ -3684,8 +4125,9 @@ def main() -> int:
     k2 = check_k2(torch)
     llama = serve_phase(torch, "llama3.2-1b", {fa: (16, 0)}, n_req=8,
                         slots=4, max_seq=2048, lo=128, hi=1024, max_new=16)
-    rwkv = serve_phase(torch, "rwkv6-7b", {wk: (32, 0)}, n_req=4, slots=2,
-                       max_seq=1024, lo=128, hi=768, max_new=8)
+    rwkv = serve_phase(torch, "rwkv6-7b", {wk: (RWKV_LAYERS, 0)}, n_req=4,
+                       slots=2, max_seq=1024, lo=128, hi=768, max_new=8,
+                       layers=RWKV_LAYERS)
     rgemma = serve_phase(torch, "recurrentgemma-2b", {rg: (18, 18),
                                                       fa: (8, 0)},
                          n_req=4, slots=2, max_seq=4096, lo=256, hi=3072,
@@ -3695,6 +4137,7 @@ def main() -> int:
     learn = learning_phase(torch, pe, engine)
     fleet_pass, fleet = fleet_phase(torch, pe, snapshot, mc)
     families, k4_audio = family_phase(torch, fa)
+    lm_training_phase(torch)
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)

@@ -76,6 +76,29 @@ def threefry_2x32(k1: torch.Tensor, k2: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
+def _threefry_2x32_int32(k1: torch.Tensor, k2: torch.Tensor,
+                        x0: torch.Tensor, x1: torch.Tensor):
+    """``threefry_2x32`` on int32 tensors holding the 32-bit words as
+    two's complement: additions wrap modulo 2**32, and a rotation's
+    right shift (arithmetic on int32) is masked to a logical one.  The
+    bulk draws run here, in place where they can: half the bytes of the
+    int64 form and no temporaries, with the same bits."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 += x1
+            hi = x1 << r
+            x1 >>= 32 - r
+            x1 &= (1 << r) - 1
+            x1 |= hi
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3] + (i + 1)
+    return x0, x1
+
+
 def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
     """The raw (2,) key of an integer seed, as ``jax.random.PRNGKey``
     builds it with 64-bit types off: ``[0, seed mod 2**32]``."""
@@ -118,56 +141,83 @@ def _shape(shape: Union[int, Sequence[int]]) -> tuple:
     return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
-def bits(key: torch.Tensor, shape: Union[int, Sequence[int]] = ()
-         ) -> torch.Tensor:
-    """32 random bits (as int64 in [0, 2**32)) of shape
-    ``key.shape[:-1] + shape``: threefry over the (hi, lo) words of the
-    row-major iota of ``shape``, combined as ``hi ^ lo``."""
+def _bits_int32(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
+                offset: int = 0) -> torch.Tensor:
+    """``bits`` as int32 tensors holding the 32-bit words."""
     shape = _shape(shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device)
     lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(lead + (1,))
-    k2 = key[..., 1].reshape(lead + (1,))
-    y0, y1 = threefry_2x32(k1, k2, idx >> 32, idx & _MASK)
-    return (y0 ^ y1).reshape(lead + shape)
+    k1 = key[..., 0].to(torch.int32).reshape(lead + (1,))
+    k2 = key[..., 1].to(torch.int32).reshape(lead + (1,))
+    y0, y1 = _threefry_2x32_int32(k1, k2, (idx >> 32).to(torch.int32),
+                                  idx.to(torch.int32))
+    y0 ^= y1
+    return y0.reshape(lead + shape)
+
+
+def bits(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
+         offset: int = 0) -> torch.Tensor:
+    """32 random bits (as int64 in [0, 2**32)) of shape
+    ``key.shape[:-1] + shape``: threefry over the (hi, lo) words of the
+    row-major iota of ``shape``, combined as ``hi ^ lo``.  ``offset``
+    starts the iota there: the draws of the flat elements ``[offset,
+    offset + prod(shape))`` of a larger shape, so a large draw can be
+    made chunk by chunk with the same bits."""
+    return _bits_int32(key, shape, offset).to(torch.int64) & _MASK
 
 
 def _unit_floats(b: torch.Tensor) -> torch.Tensor:
-    """[0, 1) f32 from random bits: the top 23 bits as the mantissa of a
-    number in [1, 2), minus one."""
-    fb = ((b >> 9) | 0x3F800000).to(torch.int32)
+    """[0, 1) f32 from random bits (int32 words): the top 23 bits as the
+    mantissa of a number in [1, 2), minus one."""
+    fb = ((b >> 9) & 0x7FFFFF) | 0x3F800000
     return fb.view(torch.float32) - 1.0
 
 
 def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` (float32) on ``[minval, maxval)``."""
+            minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32) on ``[minval, maxval)``;
+    ``offset`` as ``bits``."""
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    f = _unit_floats(bits(key, shape))
+    f = _unit_floats(_bits_int32(key, shape, offset))
     return torch.maximum(lo, _fma(f, hi - lo, lo))
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+def _fma(a, b, c) -> torch.Tensor:
     """``a * b + c`` on f32 operands rounded once to f32, as XLA's
     contracted multiply-add rounds it: the product of two f32s is exact
     in f64, so one f64 add and one rounding give the fused result (a
     double rounding could differ only where the f64 sum lies exactly
-    between two f32s)."""
-    return (a.double() * _f64(b, a) + _f64(c, a)).float()
+    between two f32s).  One ``addcmul`` in f64: a scalar (or 0-d)
+    operand goes in as a one-element f64 tensor, which makes the whole
+    product f64 without converting the large operands first."""
+    tensors = [v for v in (a, b, c) if isinstance(v, torch.Tensor)]
+    dev = tensors[0].device
+    shape = torch.broadcast_shapes(*(v.shape for v in tensors))
+    ops = [_f64(v, dev) if not isinstance(v, torch.Tensor) or v.dim() == 0
+           else v for v in (a, b, c)]
+    if all(v.dtype != torch.float64 for v in ops):
+        ops[2] = ops[2].double()
+    return torch.addcmul(ops[2], ops[0], ops[1]).float().reshape(shape)
 
 
-def _f64(v, like: torch.Tensor) -> torch.Tensor:
+def _f64(v, device: torch.device) -> torch.Tensor:
+    """A scalar (or 0-d tensor) as a one-element f64 tensor holding its
+    f32 value."""
     if isinstance(v, torch.Tensor):
-        return v.double()
-    return torch.tensor(float(np.float32(v)), dtype=torch.float64,
-                        device=like.device)
+        return v.float().double().reshape(1)
+    return torch.full((1,), float(np.float32(v)), dtype=torch.float64,
+                      device=device)
 
 
 def _c(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(float(np.float32(v)), dtype=torch.float32,
-                        device=like.device)
+    """f32 constant on ``like``'s device (filled there: no copy from
+    the host)."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=like.device)
 
 
 # ----------------------------------------------------------------------
@@ -411,13 +461,15 @@ SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
 
 
 def normal_over_sqrt2(key: torch.Tensor,
-                      shape: Union[int, Sequence[int]] = ()) -> torch.Tensor:
+                      shape: Union[int, Sequence[int]] = (),
+                      offset: int = 0) -> torch.Tensor:
     """``erf_inv(u)``: the draws of ``normal`` before their factor √2
     (XLA folds that factor into a following constant multiply)."""
-    return erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+    return erf_inv(uniform(key, shape, _NORMAL_LO, 1.0, offset))
 
 
-def normal(key: torch.Tensor, shape: Union[int, Sequence[int]] = ()
-           ) -> torch.Tensor:
-    """``jax.random.normal`` (float32): ``√2 · erf_inv(u)``."""
-    return normal_over_sqrt2(key, shape) * SQRT2_F32
+def normal(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
+           offset: int = 0) -> torch.Tensor:
+    """``jax.random.normal`` (float32): ``√2 · erf_inv(u)``; ``offset``
+    as ``bits``."""
+    return normal_over_sqrt2(key, shape, offset) * SQRT2_F32

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.models.attention import full_attention
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
@@ -138,6 +138,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_pos - W`` and implies causal.  Returns (B, Hq, Sq, D) in q's
     dtype."""
     global LAUNCHES
+    refuse_autograd("flash_attention", q, k, v)
     dev = q.device
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")

@@ -30,7 +30,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.models import blocks_rnn
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
@@ -91,6 +91,7 @@ def rglru(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     """a, x: (B, S, W) float32; h0: (B, W) float32.  Returns
     (h_all (B, S, W), h_final (B, W)), both float32, with
     ``h_t = a_t * h_{t-1} + x_t``."""
+    refuse_autograd("rglru", a, x, h0)
     dev = a.device
     if dev.type == "cpu":
         h_final, h_all = blocks_rnn.rglru_scan(a, x, h0)
@@ -133,6 +134,8 @@ def rglru_gated(gr: torch.Tensor, gi: torch.Tensor, u: torch.Tensor,
     inputs' dtype and (B, W) float32.  ``h_final``, when given, is a
     (B, W) float32 tensor written in place and returned; it may be
     ``h0`` itself (decode updates the cache's h so)."""
+    refuse_autograd("rglru_gated", gr, gi, u, branch, rgate_bias,
+                    igate_bias, lam, h0)
     dev = gr.device
     if dev.type == "cpu":
         y, hf = blocks_rnn.rglru_gated_scan(gr, gi, u, branch, rgate_bias,

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.models import blocks_rnn
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
@@ -55,6 +55,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state, returns (y (B, S, H, N), final state (B, H, N, N)), both
     float32, the state laid out [key i x value j]."""
     global LAUNCHES
+    refuse_autograd("wkv6", r, k, v, w, u)
     dev = r.device
     if dev.type == "cpu":
         b, _, h, n = r.shape

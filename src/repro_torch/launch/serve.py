@@ -4,8 +4,8 @@ Port of ``repro/launch/serve.py``, with the same flags and printed lines,
 plus ``--device`` (default ``cuda``; the CPU only when asked for) and
 ``--backend`` (default ``cuda``: the hand-written kernels on CUDA
 tensors; ``reference`` runs their plain versions, for checks).  Weights
-are random, drawn from ``--seed`` on the device (they differ from the
-JAX package's: ROADMAP C5).  Every ``--arch`` serves but internvl2-76b:
+are random, drawn from ``--seed`` on the device: the JAX package's
+weights for the same seed, bit for bit (``models.common.init_params``).  Every ``--arch`` serves but internvl2-76b:
 the engine feeds a vlm no patch embeddings, and the reference's fails on
 it (ROADMAP C15).
 

@@ -1,7 +1,7 @@
 """Model facade: family-dispatched entry points with one signature.
 
-Port of ``repro/models/api.py`` for serving.  The serving engine talks to
-models through these functions.  ``encdec`` (Whisper) has its own
+Port of ``repro/models/api.py``.  The serving engine and the train step
+talk to models through these functions.  ``encdec`` (Whisper) has its own
 implementation (``models/encdec.py``); every other family shares
 ``lm``.  ``backend`` is "cuda" (the hand-written kernels, on CUDA
 tensors) or "reference" (their plain versions, for checks).
@@ -39,23 +39,36 @@ def model_class(cfg: ModelConfig):
     return _impl(cfg).Model
 
 
-def init_model(cfg: ModelConfig, seed: int = 0,
+def init_model(cfg: ModelConfig, seed: Union[int, torch.Tensor] = 0,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = "cuda") -> Model:
-    """A model with random weights drawn on ``device`` from ``seed``."""
+    """A model holding the reference's ``init_params(PRNGKey(seed),
+    param_table(cfg))`` bit for bit, drawn on ``device``.  ``seed``: an
+    int or a ``core.prng`` key."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return model_class(cfg)(cfg, dtype, dev).init_weights(gen)
+    return model_class(cfg)(cfg, dtype, dev).init_weights(seed)
 
 
+def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, metrics) of one batch, differentiable: ``params`` is
+    a model or the reference's flat dict (``train.TrainState.params``).
+    Runs the plain paths: no kernel has a backward."""
+    return _impl(cfg).train_loss(cfg, params, batch)
+
+
+@torch.inference_mode()
 def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, Any],
             backend: str = "cuda") -> Tuple[torch.Tensor, Caches]:
+    """Builds no autograd graph, whatever the parameters require."""
     return _impl(cfg, backend).prefill(cfg, model, batch, backend)
 
 
+@torch.inference_mode()
 def decode_step(cfg: ModelConfig, model: Model, caches: Caches,
                 batch: Dict[str, Any], backend: str = "cuda"
                 ) -> Tuple[torch.Tensor, Caches]:
+    """Builds no autograd graph; writes ``caches`` in place."""
     return _impl(cfg, backend).decode_step(cfg, model, caches, batch,
                                            backend)
 

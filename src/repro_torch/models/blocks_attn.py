@@ -9,10 +9,12 @@ Block contract (shared by all block modules):
   apply(cfg, params, x, *, mode, cache, positions, index, backend)
       -> (y, new_cache, aux)
 
-``mode`` is "prefill" or "decode".  ``positions`` is (B, S) global token
-positions; ``index`` is decode's write position, a host int (the
-reference's ``positions[0, 0]``: one uniform index for the batch).  In
-decode the cache's tensors are written in place.  ``backend`` "cuda"
+``mode`` is "prefill", "decode" or "train" (no cache, and the caller
+passes ``backend="reference"``: the kernels have no backward).
+``positions`` is (B, S) global token positions; ``index`` is decode's
+write position, a host int (the reference's ``positions[0, 0]``: one
+uniform index for the batch).  In decode the cache's tensors are
+written in place.  ``backend`` "cuda"
 runs prefill attention, causal or windowed, through K4, the
 flash-attention kernel, on CUDA tensors; "reference" runs its plain
 version, ``full_attention``.
@@ -118,14 +120,16 @@ def attn_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
         else:
             out = fa_kernel.flash_attention(q, k, v, causal=True,
                                             window=local_window)
-        if local_window:
+        if mode == "train":
+            new_cache = None
+        elif local_window:
             # ring layout: slot = pos % window
             roll = s % local_window
             kc = torch.roll(k[:, :, -local_window:], roll, dims=2)
             vc = torch.roll(v[:, :, -local_window:], roll, dims=2)
+            new_cache = {"k": kc, "v": vc}
         else:
-            kc, vc = k, v
-        new_cache = {"k": kc, "v": vc}
+            new_cache = {"k": k, "v": v}
 
     out = out.transpose(1, 2).reshape(b, s, -1)          # (B, S, H*D)
     wo = params[f"{prefix}.wo"]

@@ -269,7 +269,8 @@ def mla_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
         out = torch.einsum("bshr,rhv->bshv", *_promoted(ctx, w_uv))
         new_cache = {"c_kv": c_cache, "k_pe": p_cache}
     else:
-        # prefill: decompress K/V and attend (plain: v is narrower)
+        # prefill and train: decompress K/V and attend (plain: v is
+        # narrower)
         k_nope = torch.einsum("bsr,rhk->bshk", *_promoted(c_kv, w_uk))
         v = torch.einsum("bsr,rhv->bshv", *_promoted(c_kv, w_uv))
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
@@ -278,7 +279,8 @@ def mla_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
         out = attention.full_attention(
             qq.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, q_block=cfg.q_block, scale=scale).transpose(1, 2)
-        new_cache = {"c_kv": c_kv.to(x.dtype), "k_pe": k_pe.to(x.dtype)}
+        new_cache = (None if mode == "train" else
+                     {"c_kv": c_kv.to(x.dtype), "k_pe": k_pe.to(x.dtype)})
 
     wo = params["mla.wo"]
     y = matmul(out.reshape(b, s, -1), wo.reshape(-1, wo.shape[-1]))

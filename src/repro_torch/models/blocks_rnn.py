@@ -24,9 +24,12 @@ Block contract (shared with ``blocks_attn``):
   apply(cfg, params, x, *, mode, cache, positions, index, backend)
       -> (y, new_cache, aux)
 
-``mode`` is "prefill" or "decode" (the port serves; it does not train).
-In decode the cache's tensors are updated in place.  ``backend`` is
-"cuda" (the kernels, for CUDA tensors) or "reference" (plain versions).
+``mode`` is "prefill", "decode" or "train".  In decode the cache's
+tensors are updated in place; train returns no cache and runs the plain
+recurrences (``wkv_scan`` from a zero state, ``rglru_gated_scan``) under
+autograd, as the reference trains on ``wkv_scan`` and ``rglru_scan``.
+``backend`` is "cuda" (the kernels, for CUDA tensors) or "reference"
+(plain versions).
 """
 from __future__ import annotations
 
@@ -219,7 +222,7 @@ def rwkv_time_mix(cfg: ModelConfig, params, x: torch.Tensor, *,
         state, y = wkv_step(cache["wkv"], r_[:, 0], k_[:, 0], v_[:, 0],
                             w_[:, 0], u)
         y = y[:, None]                                    # (B,1,H,N)
-    elif backend == "reference":
+    elif backend == "reference" or mode == "train":
         state0 = torch.zeros((b, h, n, n), dtype=torch.float32,
                              device=x.device)
         state, y = wkv_scan(state0, r_, k_, v_, w_, u)
@@ -233,6 +236,8 @@ def rwkv_time_mix(cfg: ModelConfig, params, x: torch.Tensor, *,
     y = y * params["tm.ln_x.scale"] + params["tm.ln_x.bias"]
     y = matmul(y * g, params["tm.wo"])
 
+    if mode == "train":
+        return y, None
     tm_x = x[:, -1].to(torch.bfloat16)
     if mode == "decode":
         cache["tm_x"].copy_(tm_x)
@@ -249,6 +254,8 @@ def rwkv_channel_mix(cfg: ModelConfig, params, x: torch.Tensor, *,
     k = torch.square(torch.relu(matmul(xk, params["cm.wk"])))
     kv = matmul(k, params["cm.wv"])
     out = torch.sigmoid(matmul(xr, params["cm.wr"])) * kv
+    if mode == "train":
+        return out, None
     cm_x = x[:, -1].to(torch.bfloat16)
     if mode == "decode":
         cache["cm_x"].copy_(cm_x)
@@ -272,7 +279,7 @@ def apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
     h = layer_norm(x, params["ln2.scale"], params["ln2.bias"], cfg.norm_eps)
     m, c_cm = rwkv_channel_mix(cfg, params, h, mode=mode, cache=cache)
     x = x + m
-    return x, {**c_tm, **c_cm}, {}
+    return x, (None if mode == "train" else {**c_tm, **c_cm}), {}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -398,13 +405,15 @@ def rglru_apply(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
              u, branch, params["rg.rgate_bias"], params["rg.igate_bias"],
              params["rg.lambda"])
     h0 = cache["h"] if mode == "decode" else None
-    if backend == "reference":
+    if backend == "reference" or mode == "train":
         y, h_final = rglru_gated_scan(*gates, h0)
     else:
         # decode writes the new h into the cache's own tensor
         y, h_final = rglru_kernel.rglru_gated(*gates, h0, h_final=h0)
 
     y = matmul(y, params["rg.w_out"])
+    if mode == "train":
+        return y, None
     if mode == "decode":
         # the reference's new conv state has the activations' dtype:
         # written in place where the cache has it too (bf16 serving), a

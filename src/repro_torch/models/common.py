@@ -8,19 +8,26 @@ sizing and naming; the parameters themselves live in ``nn.Module``s
 (``TableModule``), one per layer, whose ``named_parameters()`` are the
 table's per-layer names (``attn.wq``, ``tm.ln_x.scale``, ...).
 
-``init_params`` follows the reference's rules with a ``torch.Generator``
-(ones for norm gains, zeros for biases, normal with std
-``min(0.02, 1/sqrt(fan_in))`` for the rest).  The values differ from
-JAX's threefry draws; parity tests carry JAX's values across with
-``repro_torch.convert.params_from_numpy``.
+``init_params`` and ``TableModel.init_weights`` draw the reference's
+``init_params(jax.random.PRNGKey(seed), table)`` bit for bit (ones for
+norm gains, zeros for biases, ``std * normal`` with std
+``min(0.02, 1/sqrt(fan_in))`` for the rest), on the port's copy of
+``jax.random`` (``core/prng.py``), on any device.
+
+``chunked_softmax_xent`` is the reference's training loss over the
+vocabulary, a sequence chunk of f32 logits at a time.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.core import prng
+from repro_torch.device import DeviceLike, resolve_device
 
 ParamTable = Dict[str, Tuple[Tuple[int, ...], Tuple[Optional[str], ...]]]
 Params = Dict[str, torch.Tensor]
@@ -77,33 +84,65 @@ def init_rule(name: str, shape: Tuple[int, ...],
     return "normal", min(scale, 1.0 / math.sqrt(max(fan_in, 1)))
 
 
-def init_tensor_(t: torch.Tensor, rule: Tuple[str, float],
-                 generator: torch.Generator) -> torch.Tensor:
-    """Fill ``t`` in place by ``rule`` (from ``init_rule``), drawing in
-    float32 on ``t``'s device and rounding once to its dtype."""
+#: Elements drawn at once: a draw's counters and f32/f64 temporaries
+#: take tens of bytes an element, so large entries (olmoe's experts hold
+#: 2.1e9) are drawn in slices of the flat iota, with the same bits.
+INIT_CHUNK = 1 << 24
+
+KeyLike = Union[int, torch.Tensor]
+
+
+def as_key(key: KeyLike, device: torch.device) -> torch.Tensor:
+    """A ``prng`` key on ``device``: an int seed becomes
+    ``PRNGKey(seed)``, as ``jax.random.PRNGKey`` would."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device)
+    return prng.PRNGKey(key, device)
+
+
+def draw_(tensors: List[torch.Tensor], shape: Tuple[int, ...],
+          rule: Tuple[str, float], key: torch.Tensor) -> None:
+    """Fill ``tensors``, the slices of one table entry of (stacked)
+    ``shape`` along its leading axis (or one tensor of the whole shape),
+    in place by ``rule`` (from ``init_rule``).  A normal entry is the
+    reference's ``std * jax.random.normal(key, shape)``: each f32 draw
+    is multiplied by the f32 std and rounded once to the dtype, slice by
+    slice of the flat iota, so no more than ``INIT_CHUNK`` elements are
+    drawn at a time."""
     kind, std = rule
-    if kind == "ones":
-        return t.fill_(1.0)
-    if kind == "zeros":
-        return t.zero_()
-    draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-    draw.normal_(0.0, std, generator=generator)
-    return t.copy_(draw)
+    if kind != "normal":
+        for t in tensors:
+            t.fill_(1.0 if kind == "ones" else 0.0)
+        return
+    std32 = torch.full((), float(np.float32(std)), dtype=torch.float32,
+                       device=key.device)
+    offset = 0
+    for t in tensors:
+        flat = t.view(-1)
+        for lo in range(0, flat.numel(), INIT_CHUNK):
+            n = min(INIT_CHUNK, flat.numel() - lo)
+            flat[lo:lo + n] = prng.normal(key, (n,), offset + lo) * std32
+        offset += flat.numel()
+    assert offset == math.prod(shape), (offset, shape)
 
 
-def init_params(table: ParamTable, generator: torch.Generator,
+def init_params(key: KeyLike, table: ParamTable,
                 dtype: torch.dtype = torch.bfloat16,
-                device: Optional[torch.device] = None,
+                device: DeviceLike = "cuda",
                 scale: float = 0.02) -> Params:
-    """A flat ``{name: tensor}`` dict of the table's (stacked) shapes,
-    drawn in sorted name order from ``generator`` (which must live on
-    ``device``)."""
-    device = generator.device if device is None else device
+    """The reference's ``init_params(key, table, dtype, scale)``, bit for
+    bit: a flat ``{name: tensor}`` dict of the table's (stacked) shapes
+    on ``device``.  ``key`` is a ``prng`` key or an int seed (its
+    ``PRNGKey``); the table's entries, in sorted name order, take one
+    key each of ``split(key, len(table))``, ones/zeros entries too."""
+    dev = resolve_device(device)
+    entries = sorted(table.items())
+    keys = prng.split(as_key(key, dev), max(len(entries), 1))
     params: Params = {}
-    for name, (shape, _) in sorted(table.items()):
-        t = torch.empty(shape, dtype=dtype, device=device)
-        params[name] = init_tensor_(t, init_rule(name, shape, scale),
-                                    generator)
+    for (name, (shape, _)), k in zip(entries, keys):
+        t = torch.empty(shape, dtype=dtype, device=dev)
+        draw_([t], shape, init_rule(name, shape, scale), k)
+        params[name] = t
     return params
 
 
@@ -111,7 +150,9 @@ class TableModule(nn.Module):
     """Parameters named by a table's dotted names, as nested submodules:
     ``{"attn.wq": shape}`` becomes ``self.attn.wq``, and
     ``named_parameters()`` yields ``"attn.wq"`` again.  Parameters are
-    allocated uninitialized and need no gradient (serving only)."""
+    allocated uninitialized and registered without a gradient (serving
+    runs under ``torch.inference_mode``); ``requires_grad_(True)`` makes
+    them trainable, and ``lm.train_loss`` then differentiates them."""
 
     def __init__(self, shapes: Dict[str, Tuple[int, ...]],
                  dtype: torch.dtype, device: torch.device) -> None:
@@ -158,16 +199,17 @@ class TableModel(nn.Module):
         return self.top.embed.dtype
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator,
+    def init_weights(self, key: KeyLike = 0,
                      scale: float = 0.02) -> "TableModel":
-        """The reference's init rules (``init_rule``, with the fan-in of
-        the reference's stacked shape), drawn from ``generator`` (on this
-        model's device) in sorted name order."""
-        for name, shape, tensors in sorted(self.table_entries(),
-                                           key=lambda e: e[0]):
-            rule = init_rule(name, shape, scale)
-            for t in tensors:
-                init_tensor_(t, rule, generator)
+        """The reference's ``init_params(key, table)`` in this model's
+        per-layer tensors, bit for bit: the sorted table's entries take
+        one key each of ``split(key, len(table))``, and a stacked entry
+        is drawn over its whole stacked shape and sliced into the
+        layers.  ``key``: a ``prng`` key or an int seed."""
+        entries = sorted(self.table_entries(), key=lambda e: e[0])
+        keys = prng.split(as_key(key, self.device), max(len(entries), 1))
+        for (name, shape, tensors), k in zip(entries, keys):
+            draw_(tensors, shape, init_rule(name, shape, scale), k)
         return self
 
 
@@ -224,3 +266,31 @@ def embed(tokens: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
     """Logits via tied or untied unembedding: (..., d) @ (V, d)^T."""
     return matmul(x, embedding.t())
+
+
+def chunked_softmax_xent(x: torch.Tensor, labels: torch.Tensor,
+                         unembed_w: torch.Tensor, mask: torch.Tensor,
+                         chunk: int = 1024) -> torch.Tensor:
+    """The reference's cross-entropy over the vocabulary: f32 logits a
+    sequence chunk of ``chunk`` positions at a time (the reference scans
+    the chunks), then the remainder, summed in that order, over the
+    mask's sum (at least 1).  ``x``: (B, S, d); ``labels``/``mask``:
+    (B, S)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    mask = mask.to(device=x.device, dtype=torch.float32)
+    labels = labels.to(device=x.device, dtype=torch.int64)
+
+    def chunk_loss(lo: int, hi: int) -> torch.Tensor:
+        logits = unembed(x[:, lo:hi], unembed_w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, lo:hi, None])[..., 0]
+        return torch.sum((lse - gold) * mask[:, lo:hi])
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        total = total + chunk_loss(c * chunk, (c + 1) * chunk)
+    if s - n_chunks * chunk:
+        total = total + chunk_loss(n_chunks * chunk, s)
+    return total / torch.clamp_min(mask.sum(), 1.0)

@@ -1,5 +1,6 @@
 """Whisper-style encoder-decoder backbone: port of
-``repro/models/encdec.py`` for serving (prefill and decode) on one GPU.
+``repro/models/encdec.py`` for serving (prefill and decode) and training
+(``train_loss``, on the plain attention) on one GPU.
 
 As in the reference the audio front end is a stub: a prefill takes
 precomputed frame embeddings ``batch["frames"]`` (B, S_enc, d_model).
@@ -26,13 +27,15 @@ from typing import Any, Dict, Iterator, List, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.models import attention
 from repro_torch.models.blocks_attn import project
-from repro_torch.models.common import (ParamTable, TableModel, TableModule,
+from repro_torch.models.common import (ParamTable, Params, TableModel,
+                                       TableModule, chunked_softmax_xent,
                                        embed, layer_norm, matmul,
                                        merge_tables, prefix_table,
                                        stack_table, unembed)
@@ -149,9 +152,31 @@ class EncDec(TableModel):
                 yield name, table[name][0], [l.get_parameter(key)
                                              for l in layers]
 
+    def weights(self) -> Tuple[Params, List[Params], List[Params]]:
+        """(the top tensors, per-layer encoder dicts, decoder dicts)."""
+        return (self.top.params(), [layer.params() for layer in self.enc],
+                [layer.params() for layer in self.dec])
+
 
 #: The family's model class, as ``api.model_class`` finds it.
 Model = EncDec
+
+
+def weights(cfg: ModelConfig, params
+            ) -> Tuple[Params, List[Params], List[Params]]:
+    """``params``, an ``EncDec`` or the reference's flat dict (stacked
+    ``enc.*``/``dec.*`` entries), as ``EncDec.weights`` lays them out; a
+    layer's tensors are views of the stacked ones (``unbind``)."""
+    if isinstance(params, EncDec):
+        return params.weights()
+    top = {k: params[k] for k in _top_table(cfg)}
+
+    def layers(stack: str, block: ParamTable, n: int) -> List[Params]:
+        per = {key: params[f"{stack}.{key}"].unbind(0) for key in block}
+        return [{key: per[key][j] for key in block} for j in range(n)]
+
+    return (top, layers("enc", enc_block_table(cfg), cfg.n_encoder_layers),
+            layers("dec", dec_block_table(cfg), cfg.n_layers))
 
 
 # ----------------------------------------------------------------------
@@ -201,47 +226,74 @@ def _positions(s: int, x: torch.Tensor) -> torch.Tensor:
 # Encoder and decoder
 # ----------------------------------------------------------------------
 
+def _layer(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _enc_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               backend: str) -> torch.Tensor:
+    h = _ln(p, "self_ln", x, cfg.norm_eps)
+    q, k, v = _proj_qkv(p, "self", h, h)
+    x = x + _out_proj(p, "self", _attend(cfg, q, k, v, causal=False,
+                                         backend=backend))
+    return x + _mlp(p, _ln(p, "mlp_ln", x, cfg.norm_eps))
+
+
+def _encode(cfg: ModelConfig, top: Params, enc: List[Params],
+            frames: torch.Tensor, backend: str,
+            remat: bool = False) -> torch.Tensor:
+    x = frames + _positions(frames.shape[1], frames)[None]
+    for p in enc:
+        x = _layer(_enc_layer, remat, cfg, p, x, backend)
+    return _ln(top, "enc_ln_post", x, cfg.norm_eps)
+
+
 def encode(cfg: ModelConfig, model: EncDec, frames: torch.Tensor,
            backend: str = "cuda") -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed embeddings (stub front end)."""
-    x = frames + _positions(frames.shape[1], frames)[None]
-    for layer in model.enc:
-        p = layer.params()
-        h = _ln(p, "self_ln", x, cfg.norm_eps)
-        q, k, v = _proj_qkv(p, "self", h, h)
-        x = x + _out_proj(p, "self", _attend(cfg, q, k, v, causal=False,
-                                             backend=backend))
-        x = x + _mlp(p, _ln(p, "mlp_ln", x, cfg.norm_eps))
-    return _ln(model.top.params(), "enc_ln_post", x, cfg.norm_eps)
+    top, enc, _ = model.weights()
+    return _encode(cfg, top, enc, frames, backend)
 
 
-def _dec_prefill(cfg: ModelConfig, model: EncDec, x: torch.Tensor,
+def _dec_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               enc_out: torch.Tensor, backend: str
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decoder layer over the whole sequence: (x, its caches)."""
+    h = _ln(p, "self_ln", x, cfg.norm_eps)
+    q, k, v = _proj_qkv(p, "self", h, h)
+    x = x + _out_proj(p, "self", _attend(cfg, q, k, v, causal=True,
+                                         backend=backend))
+    h = _ln(p, "cross_ln", x, cfg.norm_eps)
+    qc, kc, vc = _proj_qkv(p, "cross", h, enc_out)
+    x = x + _out_proj(p, "cross", _attend(cfg, qc, kc, vc, causal=False,
+                                          backend=backend))
+    x = x + _mlp(p, _ln(p, "mlp_ln", x, cfg.norm_eps))
+    return x, {"self_k": k, "self_v": v, "cross_k": kc, "cross_v": vc}
+
+
+def _dec_train_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+    return _dec_layer(cfg, p, x, enc_out, "reference")[0]
+
+
+def _dec_prefill(cfg: ModelConfig, dec: List[Params], x: torch.Tensor,
                  enc_out: torch.Tensor, backend: str
                  ) -> Tuple[torch.Tensor, Caches]:
     caches: Caches = {}
-    for j, layer in enumerate(model.dec):
-        p = layer.params()
-        h = _ln(p, "self_ln", x, cfg.norm_eps)
-        q, k, v = _proj_qkv(p, "self", h, h)
-        x = x + _out_proj(p, "self", _attend(cfg, q, k, v, causal=True,
-                                             backend=backend))
-        h = _ln(p, "cross_ln", x, cfg.norm_eps)
-        qc, kc, vc = _proj_qkv(p, "cross", h, enc_out)
-        x = x + _out_proj(p, "cross", _attend(cfg, qc, kc, vc,
-                                              causal=False, backend=backend))
-        x = x + _mlp(p, _ln(p, "mlp_ln", x, cfg.norm_eps))
-        caches[f"dec.l{j}"] = {"self_k": k, "self_v": v,
-                               "cross_k": kc, "cross_v": vc}
+    for j, p in enumerate(dec):
+        x, caches[f"dec.l{j}"] = _dec_layer(cfg, p, x, enc_out, backend)
     return x, caches
 
 
-def _dec_decode(cfg: ModelConfig, model: EncDec, x: torch.Tensor,
+def _dec_decode(cfg: ModelConfig, dec: List[Params], x: torch.Tensor,
                 caches: Caches, index: int) -> Tuple[torch.Tensor, Caches]:
     """One token (B, 1, d) through every decoder layer; self caches
     written in place at ``index``."""
     b = x.shape[0]
-    for j, layer in enumerate(model.dec):
-        p = layer.params()
+    for j, p in enumerate(dec):
         c = caches[f"dec.l{j}"]
         h = _ln(p, "self_ln", x, cfg.norm_eps)
         q, k, v = _proj_qkv(p, "self", h, h)
@@ -261,26 +313,51 @@ def _dec_decode(cfg: ModelConfig, model: EncDec, x: torch.Tensor,
     return x, caches
 
 
-def _logits(cfg: ModelConfig, model: EncDec, x: torch.Tensor
+def _logits(cfg: ModelConfig, top: Params, x: torch.Tensor
             ) -> torch.Tensor:
-    x = _ln(model.top.params(), "dec_ln_post", x, cfg.norm_eps)
-    return unembed(x, model.top.embed).float()
+    x = _ln(top, "dec_ln_post", x, cfg.norm_eps)
+    return unembed(x, top["embed"]).float()
+
+
+def _embed_tokens(cfg: ModelConfig, top: Params, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    x = embed(tokens, top["embed"])
+    return x + _positions(tokens.shape[1], x)[None]
 
 
 # ----------------------------------------------------------------------
 # Entry points (lm.py's signatures)
 # ----------------------------------------------------------------------
 
+def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``encdec.train_loss``: ``params`` an ``EncDec`` or
+    the reference's flat dict; ``batch`` {"tokens", "labels", "mask"}
+    (B, S) and "frames" (B, S_enc, d).  Encoder and decoder run the plain
+    attention, each layer under ``torch.utils.checkpoint`` when
+    ``cfg.remat``.  Returns (xent, {"xent", "loss"})."""
+    top, enc, dec = weights(cfg, params)
+    frames = batch["frames"].to(top["embed"].device)
+    enc_out = _encode(cfg, top, enc, frames, "reference", cfg.remat)
+    x = _embed_tokens(cfg, top, batch["tokens"])
+    for p in dec:
+        x = _layer(_dec_train_layer, cfg.remat, cfg, p, x, enc_out)
+    x = _ln(top, "dec_ln_post", x, cfg.norm_eps)
+    loss = chunked_softmax_xent(x, batch["labels"], top["embed"],
+                                batch["mask"], cfg.logit_chunk)
+    return loss, {"xent": loss, "loss": loss}
+
+
 def prefill(cfg: ModelConfig, model: EncDec, batch: Dict[str, Any],
             backend: str = "cuda") -> Tuple[torch.Tensor, Caches]:
     """``batch`` = {"tokens": (B, S), "frames": (B, S_enc, d)}; returns
     (last-position logits (B, 1, V) f32, per-layer caches)."""
-    enc_out = encode(cfg, model, batch["frames"].to(model.device), backend)
-    tokens = batch["tokens"]
-    x = embed(tokens, model.top.embed)
-    x = x + _positions(tokens.shape[1], x)[None]
-    x, caches = _dec_prefill(cfg, model, x, enc_out, backend)
-    return _logits(cfg, model, x[:, -1:]), caches
+    top, enc, dec = model.weights()
+    enc_out = _encode(cfg, top, enc, batch["frames"].to(model.device),
+                      backend)
+    x = _embed_tokens(cfg, top, batch["tokens"])
+    x, caches = _dec_prefill(cfg, dec, x, enc_out, backend)
+    return _logits(cfg, top, x[:, -1:]), caches
 
 
 def decode_step(cfg: ModelConfig, model: EncDec, caches: Caches,
@@ -291,12 +368,12 @@ def decode_step(cfg: ModelConfig, model: EncDec, caches: Caches,
     changes nothing here."""
     del backend
     index = int(batch["index"])
-    tokens = batch["tokens"]
-    x = embed(tokens, model.top.embed)
+    top, _, dec = model.weights()
+    x = embed(batch["tokens"], top["embed"])
     x = x + sinusoid(torch.tensor(index, device=x.device),
                      cfg.d_model).to(x.dtype)
-    x, caches = _dec_decode(cfg, model, x, caches, index)
-    return _logits(cfg, model, x), caches
+    x, caches = _dec_decode(cfg, dec, x, caches, index)
+    return _logits(cfg, top, x), caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq: int, dtype: torch.dtype,

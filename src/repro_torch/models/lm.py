@@ -1,9 +1,13 @@
 """Generic decoder LM: embeddings + block segments + unembedding.
 
-Port of ``repro/models/lm.py`` for serving (prefill and decode) of the
-``dense`` (llama), ``vlm`` (InternVL2's decoder), ``moe`` (OLMoE,
-DeepSeek-V2), ``ssm`` (RWKV6) and ``hybrid`` (RecurrentGemma) families;
-``encdec`` (Whisper) is ``models/encdec.py``.
+Port of ``repro/models/lm.py`` for serving (prefill and decode) and
+training (``train_loss``) of the ``dense`` (llama), ``vlm`` (InternVL2's
+decoder), ``moe`` (OLMoE, DeepSeek-V2), ``ssm`` (RWKV6) and ``hybrid``
+(RecurrentGemma) families; ``encdec`` (Whisper) is ``models/encdec.py``.
+Training runs the plain paths under autograd, as the reference
+differentiates its plain JAX paths (no kernel has a backward), and
+takes either an ``LM`` or the reference's flat parameter dict
+(``flat_weights``).
 
 A model is a list of *segments*; each segment is ``n`` layers of one
 block kind.  The reference stacks a scanned segment's parameters on a
@@ -32,11 +36,13 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks_attn, blocks_moe, blocks_rnn
-from repro_torch.models.common import (ParamTable, TableModel, TableModule,
+from repro_torch.models.common import (ParamTable, Params, TableModel,
+                                       TableModule, chunked_softmax_xent,
                                        embed, matmul, merge_tables,
                                        prefix_table, rms_norm, stack_table,
                                        unembed)
@@ -44,6 +50,10 @@ from repro_torch.models.common import (ParamTable, TableModel, TableModule,
 #: ``seg{i}.l{j}`` -> the layer's cache: ``{name: tensor}``, or for a
 #: pattern layer ``{"p{k}": {name: tensor}}``.
 Caches = Dict[str, Dict[str, Any]]
+#: Per-segment lists of per-layer ``{name: tensor}`` dicts (the block
+#: tables' names).
+Layers = List[List[Params]]
+Aux = Dict[str, torch.Tensor]
 
 
 class Segment(NamedTuple):
@@ -94,15 +104,18 @@ def _pattern_table(cfg: ModelConfig) -> ParamTable:
 def _pattern_apply(cfg, params, x, *, mode, cache, positions, index=None,
                    backend="cuda"):
     new_cache = {}
+    aux: Aux = {}
     for j, kind in enumerate(cfg.block_pattern):
         pre = f"p{j}."
         sub = {k[len(pre):]: v for k, v in params.items()
                if k.startswith(pre)}
-        x, new_cache[f"p{j}"], _ = BLOCKS[kind][1](
+        x, new_cache[f"p{j}"], a = BLOCKS[kind][1](
             cfg, sub, x, mode=mode,
             cache=cache[f"p{j}"] if mode == "decode" else None,
             positions=positions, index=index, backend=backend)
-    return x, new_cache, {}
+        for k, v in a.items():
+            aux[k] = aux.get(k, 0.0) + v
+    return x, (None if mode == "train" else new_cache), aux
 
 
 def _pattern_cache(cfg, batch, seq, dtype, device):
@@ -193,32 +206,79 @@ class LM(TableModel):
                         yield name, table[name][0], [
                             layer.get_parameter(key)]
 
+    def weights(self) -> Tuple[Params, Layers]:
+        """(the top tensors, per-segment lists of per-layer dicts)."""
+        return self.top.params(), [[layer.params() for layer in seg]
+                                   for seg in self.segs]
+
 
 #: The family's model class, as ``api.model_class`` finds it.
 Model = LM
+
+
+def flat_weights(cfg: ModelConfig, params: Params) -> Tuple[Params, Layers]:
+    """``LM.weights``'s layout from the reference's flat dict (stacked
+    entries of scanned segments on a leading layer axis): a scanned
+    layer's tensors are views of the stacked ones (``unbind``), so a
+    gradient reaches the stacked tensor."""
+    top = {k: params[k] for k in _top_table(cfg)}
+    layers: Layers = []
+    for i, seg in enumerate(plan_segments(cfg)):
+        keys = list(BLOCKS[seg.kind][0](cfg))
+        if seg.scanned:
+            per = {key: params[f"seg{i}.{key}"].unbind(0) for key in keys}
+            layers.append([{key: per[key][j] for key in keys}
+                           for j in range(seg.n)])
+        else:
+            layers.append([{key: params[f"seg{i}.l{j}.{key}"]
+                            for key in keys} for j in range(seg.n)])
+    return top, layers
+
+
+def weights(cfg: ModelConfig, params) -> Tuple[Params, Layers]:
+    """``params``, an ``LM`` or the reference's flat dict, as (top,
+    layers)."""
+    if isinstance(params, LM):
+        return params.weights()
+    return flat_weights(cfg, params)
 
 
 # ----------------------------------------------------------------------
 # Forward pass over segments
 # ----------------------------------------------------------------------
 
-def run_blocks(cfg: ModelConfig, model: LM, x: torch.Tensor, *, mode: str,
-               caches: Optional[Caches], positions: torch.Tensor,
+def run_blocks(cfg: ModelConfig, layers: Layers, x: torch.Tensor, *,
+               mode: str, caches: Optional[Caches], positions: torch.Tensor,
                index: Optional[int] = None, backend: str = "cuda"
-               ) -> Tuple[torch.Tensor, Caches]:
+               ) -> Tuple[torch.Tensor, Caches, Aux]:
     """Every layer in order.  Prefill returns fresh per-layer caches;
-    decode updates ``caches`` in place and returns it."""
+    decode updates ``caches`` in place and returns it.  Train returns no
+    caches and each aux term summed over layers; it runs the plain paths
+    (the kernels have no backward), each layer under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+    ``jax.checkpoint(nothing_saveable)``: only the layer's input is
+    kept, the rest recomputed in the backward)."""
     new_caches: Caches = {}
-    for i, seg in enumerate(model.plan):
+    aux_total: Aux = {}
+    train = mode == "train"
+    for i, seg in enumerate(plan_segments(cfg)):
         apply_fn = BLOCKS[seg.kind][1]
-        for j, layer in enumerate(model.segs[i]):
+        for j, params in enumerate(layers[i]):
             key = f"seg{i}.l{j}"
-            x, c_out, _ = apply_fn(
-                cfg, layer.params(), x, mode=mode,
-                cache=caches[key] if mode == "decode" else None,
-                positions=positions, index=index, backend=backend)
-            new_caches[key] = c_out
-    return x, new_caches
+            kw = dict(mode=mode, positions=positions, index=index,
+                      cache=caches[key] if mode == "decode" else None,
+                      backend="reference" if train else backend)
+            if train and cfg.remat:
+                x, c_out, aux = checkpoint(apply_fn, cfg, params, x,
+                                           use_reentrant=False, **kw)
+            else:
+                x, c_out, aux = apply_fn(cfg, params, x, **kw)
+            if train:
+                for k, v in aux.items():
+                    aux_total[k] = aux_total.get(k, 0.0) + v
+            else:
+                new_caches[key] = c_out
+    return x, (None if train else new_caches), aux_total
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq: int,
@@ -236,17 +296,18 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int,
 # Embedding front end
 # ----------------------------------------------------------------------
 
-def embed_inputs(cfg: ModelConfig, model: LM, batch: Dict[str, Any], *,
+def embed_inputs(cfg: ModelConfig, top: Params, batch: Dict[str, Any], *,
                  mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B, S, d), positions (B, S)).  Decode positions are the
     batch's uniform ``index``.  vlm: ``batch["patches"]`` (B, P, d), cast
-    to the embedding dtype and projected, go before the tokens."""
+    to the embedding dtype and projected, go before the tokens (in
+    prefill and train)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = embed(tokens, model.top.embed)
+    x = embed(tokens, top["embed"])
     if cfg.family == "vlm" and mode != "decode":
         patches = batch["patches"].to(device=x.device, dtype=x.dtype)
-        x = torch.cat([matmul(patches, model.top.patch_proj), x], dim=1)
+        x = torch.cat([matmul(patches, top["patch_proj"]), x], dim=1)
     if mode == "decode":
         positions = torch.full((b, 1), int(batch["index"]),
                                dtype=torch.int32, device=x.device)
@@ -256,24 +317,55 @@ def embed_inputs(cfg: ModelConfig, model: LM, batch: Dict[str, Any], *,
     return x, positions
 
 
-def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, model.top.final_norm.scale, cfg.norm_eps)
-    w = model.top.embed if cfg.tie_embeddings else model.top.unembed
-    return unembed(x, w).float()
+def _unembed_weight(cfg: ModelConfig, top: Params) -> torch.Tensor:
+    return top["embed"] if cfg.tie_embeddings else top["unembed"]
+
+
+def _logits(cfg: ModelConfig, top: Params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, top["final_norm.scale"], cfg.norm_eps)
+    return unembed(x, _unembed_weight(cfg, top)).float()
 
 
 # ----------------------------------------------------------------------
 # Entry points
 # ----------------------------------------------------------------------
 
+def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, Aux]:
+    """The reference's ``lm.train_loss``: ``params`` an ``LM`` or the
+    reference's flat dict; ``batch`` {"tokens", "labels", "mask"} (B, S)
+    (and the vlm's "patches" (B, P, d)).  Returns (total loss, metrics):
+    ``xent`` (the vlm's on its text positions only), every aux term
+    summed over layers (``moe_aux``, ``moe_z``, ``moe_dropped``), and
+    ``loss`` = xent + moe_aux + moe_z."""
+    top, layers = weights(cfg, params)
+    x, positions = embed_inputs(cfg, top, batch, mode="train")
+    x, _, aux = run_blocks(cfg, layers, x, mode="train", caches=None,
+                           positions=positions)
+    x = rms_norm(x, top["final_norm.scale"], cfg.norm_eps)
+    if cfg.family == "vlm":     # loss only on the text positions
+        x = x[:, batch["patches"].shape[1]:]
+    loss = chunked_softmax_xent(x, batch["labels"], _unembed_weight(cfg, top),
+                                batch["mask"], cfg.logit_chunk)
+    total = loss
+    metrics = {"xent": loss}
+    for k, v in aux.items():
+        metrics[k] = v
+        if k in ("moe_aux", "moe_z"):
+            total = total + v
+    metrics["loss"] = total
+    return total, metrics
+
+
 def prefill(cfg: ModelConfig, model: LM, batch: Dict[str, Any],
             backend: str = "cuda") -> Tuple[torch.Tensor, Caches]:
     """Process the full prompt; return (last-position logits (B, 1, V)
     f32, per-layer caches)."""
-    x, positions = embed_inputs(cfg, model, batch, mode="prefill")
-    x, caches = run_blocks(cfg, model, x, mode="prefill", caches=None,
-                           positions=positions, backend=backend)
-    return _logits(cfg, model, x[:, -1:]), caches
+    top, layers = model.weights()
+    x, positions = embed_inputs(cfg, top, batch, mode="prefill")
+    x, caches, _ = run_blocks(cfg, layers, x, mode="prefill", caches=None,
+                              positions=positions, backend=backend)
+    return _logits(cfg, top, x[:, -1:]), caches
 
 
 def decode_step(cfg: ModelConfig, model: LM, caches: Caches,
@@ -283,8 +375,9 @@ def decode_step(cfg: ModelConfig, model: LM, caches: Caches,
 
     ``batch`` = {"tokens": (B, 1), "index": int position}.  The caches
     are written in place."""
-    x, positions = embed_inputs(cfg, model, batch, mode="decode")
-    x, caches = run_blocks(cfg, model, x, mode="decode", caches=caches,
-                           positions=positions, index=int(batch["index"]),
-                           backend=backend)
-    return _logits(cfg, model, x), caches
+    top, layers = model.weights()
+    x, positions = embed_inputs(cfg, top, batch, mode="decode")
+    x, caches, _ = run_blocks(cfg, layers, x, mode="decode", caches=caches,
+                              positions=positions, index=int(batch["index"]),
+                              backend=backend)
+    return _logits(cfg, top, x), caches

@@ -109,6 +109,16 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   forward; whisper and olmoe prefills with K4 (``backend="cuda"``)
   against the plain versions, and K4's launches a prefill (whisper: 2
   encoder + 2 x 2 decoder layers; olmoe: 2 layers).
+* A train step (f32, TF32 off) of llama3.2-1b, olmoe-1b-7b, rwkv6-7b,
+  recurrentgemma-2b and whisper-small at smoke size on the card against
+  the CPU from the same initial weights: loss and grad norm within rtol
+  1e-5, moments within 1e-4 of their tensor's max |x|, parameters
+  within 1e-4 of max |p| where |g| >= 1e-3 max |g| and within 2·lr
+  anywhere (AdamW's first step, lr·g/(|g| + eps), magnifies last-bit
+  gradient differences where |g| is near eps).  The kernel wrappers
+  (K2's two entries, K3, K4) refuse CUDA inputs that require a gradient
+  under grad mode, before any launch, and run them under
+  ``torch.no_grad()``.
 """
 import warnings
 
@@ -1119,8 +1129,7 @@ def test_moe_dispatch_on_the_card_matches_the_cpu(dispatch, monkeypatch):
     resolve_device("cuda")            # no TF32
     monkeypatch.setattr(bm, "MOE_CHUNK", 16)
     cfg = _smoke("olmoe-1b-7b", dispatch=dispatch)
-    params = init_params(bm.moe_table(cfg), torch.Generator().manual_seed(0),
-                         torch.float32)
+    params = init_params(0, bm.moe_table(cfg), torch.float32, "cpu")
     x = torch.randn((2, 24, cfg.d_model),
                     generator=torch.Generator().manual_seed(1))
     for n_tok in (32, 48, 42):        # two chunks, three, ragged
@@ -1188,3 +1197,79 @@ def test_family_prefill_through_k4(arch, per_prefill):
         assert fa.LAUNCHES == per_prefill
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "olmoe-1b-7b", "rwkv6-7b",
+                                  "recurrentgemma-2b", "whisper-small"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """One train step (f32, TF32 off) from the same initial weights on
+    the card and on the CPU: loss and grad norm within rtol 1e-5, the
+    moments within 1e-4 of their tensor's max |x|, the parameters within
+    1e-4 of max |p| where |g| >= 1e-3 of its tensor's max |g| (below,
+    AdamW's first step magnifies last-bit gradient differences) and
+    within 2·lr anywhere."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.optimizer import lr_at
+    from repro_torch.train.train_step import batch_on
+    cfg = get_smoke_config(arch)
+    opt = OptimizerConfig(peak_lr=3e-3, warmup_steps=1, total_steps=8)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4, seed=1)).batch(0)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((4, 32, cfg.d_model))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(0, cfg, dtype=torch.float32, device=dev)
+        if dev == "cpu":
+            leaves = {k: p.detach().requires_grad_(True)
+                      for k, p in state.params.items()}
+            loss, _ = api.train_loss(cfg, leaves,
+                                     batch_on(batch, torch.device("cpu")))
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        step = make_train_step(cfg, opt, accum_steps=1, device=dev)
+        out[dev] = step(state, batch)
+    (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=0)
+    lr = float(lr_at(opt, torch.tensor(1)))
+    for what, a, b in (("params", sg.params, sc.params),
+                       ("mu", sg.opt.mu, sc.opt.mu),
+                       ("nu", sg.opt.nu, sc.opt.nu)):
+        for k in b:
+            scale = float(b[k].abs().max()) or 1.0
+            d = (a[k].detach().cpu() - b[k].detach()).abs()
+            if what == "params":
+                assert float(d.max()) <= 2 * lr, (k, float(d.max()))
+                d = d[grads[k].abs() >= 1e-3 * grads[k].abs().max()]
+            assert float(d.max()) <= 1e-4 * scale, (what, k, float(d.max()),
+                                                    scale)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd_on_the_card():
+    _card()
+    q = torch.zeros((1, 2, 64, 64), device="cuda", requires_grad=True)
+    a = torch.zeros((1, 16, 64), device="cuda", requires_grad=True)
+    g = torch.zeros((1, 16, 64), device="cuda")
+    b = torch.zeros((64,), device="cuda")
+    r = torch.zeros((1, 16, 2, 64), device="cuda", requires_grad=True)
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(q, q, q),
+        "rglru": lambda: rg.rglru(a, g, torch.zeros((1, 64), device="cuda")),
+        "rglru_gated": lambda: rg.rglru_gated(a, g, g, g, b, b, b),
+        "wkv6": lambda: wk.wkv6(r, r, r, r,
+                                torch.zeros((2, 64), device="cuda")),
+    }
+    for name, call in calls.items():
+        before = (fa.LAUNCHES, rg.LAUNCHES, wk.LAUNCHES)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert (fa.LAUNCHES, rg.LAUNCHES, wk.LAUNCHES) == before, name
+        with torch.no_grad():
+            call()

@@ -20,7 +20,9 @@
   --shard/--block-size/--prefetch``) and the four examples, and the
   serving stack of the moe, vlm and encdec families (``EncDec``,
   ``init_model``/``init_caches`` for each, ``launch.serve --arch`` of
-  olmoe, deepseek and whisper, ``examples.serve_twin``).
+  olmoe, deepseek and whisper, ``examples.serve_twin``), and the
+  training path (``init_params``, ``init_train_state``,
+  ``make_train_step``, ``launch.train``).
 * On a host with a card (marker ``cuda``), K1 is held bitwise against
   its plain version.  Tolerance: none — started sets and free-node
   counts are integers.
@@ -258,6 +260,27 @@ def test_serving_entry_points_raise_for_cuda_without_a_card():
     calls["EncDec"] = lambda: EncDec(whisper)
     calls["ServingEngine(whisper)"] = lambda: ServingEngine(
         whisper, api.init_model(whisper, device="cpu"), 2, 16)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_training_entry_points_raise_for_cuda_without_a_card():
+    """The training path: the reference's initial weights, the train
+    state, the train step and the training CLI, asked for ``cuda`` (their
+    default) without a card, each raises; none goes on on the CPU."""
+    _no_card()
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import common
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_smoke_config("llama3.2-1b")
+    calls = {
+        "init_params": lambda: common.init_params(0, api.param_table(cfg)),
+        "init_train_state": lambda: init_train_state(0, cfg),
+        "make_train_step": lambda: make_train_step(cfg),
+        "launch.train.main": lambda: train_cli.main(
+            ["--arch", "llama3.2-1b", "--smoke", "--steps", "1"]),
+    }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

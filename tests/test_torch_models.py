@@ -136,8 +136,7 @@ def test_init_rules(how):
             cfg, seed=3, dtype=torch.float32, device=CPU)) for _ in range(2))
     else:
         d, d2 = ({k: v.numpy() for k, v in common.init_params(
-            table, torch.Generator().manual_seed(3), torch.float32).items()}
-            for _ in range(2))
+            3, table, torch.float32, CPU).items()} for _ in range(2))
     assert set(d) == set(table)
     for name, arr in d.items():
         np.testing.assert_array_equal(arr, d2[name])     # same seed

@@ -167,8 +167,7 @@ def test_moe_gather_dispatch_matches_gshard():
     0.3 (where both dispatches' outputs are within its loose tolerance
     despite C17), ``moe_dropped`` equal."""
     cfg = get_smoke_config("olmoe-1b-7b")
-    params = common.init_params(bm.moe_table(cfg),
-                                torch.Generator().manual_seed(0))
+    params = common.init_params(0, bm.moe_table(cfg), device="cpu")
     x = torch.from_numpy(_x(2, 64, cfg.d_model, seed=1, scale=0.3)).to(
         torch.bfloat16)
     outs = {d: bm.moe_apply(_dispatch(cfg, d), params, x)
