@@ -208,6 +208,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      rwkv6-7b and deepseek-v2-lite-16b at half depth, and the Polaris
      trace family that phases 12-15 replay holds 500 jobs a trace (was
      1,000): about 1,000 host steps a replay instead of 2,000.
+ 18. the one-GPU dry run (``repro_torch.launch.dryrun``) held against
+     the card: (a) ``run_cell`` on meta for 13 cells, a prefill and a
+     decode cell a family plus (b)'s, a record line each (no train
+     cell: (c) runs one, ``dryrun --all`` the rest); (b) llama3.2-1b
+     prefill_32k at batch 8 and decode_32k at batch 32,
+     recurrentgemma-2b prefill_32k at batch 1 and rwkv6-7b prefill_32k
+     at batch 1 and 16 of 32 layers, each on meta and then for real on
+     zero weights (K2/K3/K4 launches equal to the meta run's kernel
+     calls; the counter around the real call gives meta's FLOPs
+     exactly; ``max_memory_allocated()`` above the inputs within 5% +
+     256 MiB of meta's peak above its inputs; the wall, outside the
+     counter, against the roofline's max(Tc, Tm)); (c) phase 17 (a)'s
+     configuration on meta against phase 17's measured peak above its
+     state and a counted step on the card (equal FLOPs, no kernel).
 
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -253,8 +267,11 @@ POLARIS_SLOTS = 1024         # job-table capacity J
 POLARIS_JOBS = 700           # backlog: ~100 running + ~600 queued
 DRAS_POOL = "extended,wfp:a=1..5x5:tau=600..7200x5"   # k = 32
 POLARIS_CYCLES = 5
-MEM_RATE = 3.35e12           # H100 SXM HBM3, bytes/s (data sheet)
-OP_RATE = 67e12              # H100 SXM non-tensor 32-bit rate, ops/s
+# H100 SXM data-sheet rates: HBM3 bytes/s, non-tensor 32-bit ops/s and
+# dense bf16 FLOP/s (the dry run's roofline divides by the same)
+from repro_torch.launch.cost import HBM_BW as MEM_RATE  # noqa: E402
+from repro_torch.launch.cost import OP_RATE  # noqa: E402
+from repro_torch.launch.cost import PEAK_FLOPS_BF16 as BF16_PEAK  # noqa: E402
 
 K1 = dict(name="policy_eval_pass_batched", route="cuda",
           source="src/repro_torch/csrc/policy_eval.cu",
@@ -990,10 +1007,10 @@ def check_k4(torch):
             torch, k4_raw_launch(torch, fa, q, k, v, causal),
             sdpa_call(torch, q.contiguous(), k.contiguous(), v.contiguous(),
                       causal))
-        flops = 4 * 32 * s * s * 64 / (2 if causal else 1)
-        nbytes = (2 * 32 + 2 * 8) * s * 64 * q.element_size()
+        flops, nbytes = fa.work(1, 32, 8, s, s, 64, causal=causal,
+                                itemsize=q.element_size())
         bnd, by = bound(nbytes, flops,
-                        989e12 if dtype == torch.bfloat16 else OP_RATE)
+                        BF16_PEAK if dtype == torch.bfloat16 else OP_RATE)
         print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = {tol}); "
               f"kernel {ms * 1e3:.1f} us (turns "
               f"{turns[0] * 1e3:.1f}/{turns[3] * 1e3:.1f}; "
@@ -1047,11 +1064,9 @@ def check_k4_local(torch):
             sdpa_call(torch, q.contiguous(), k.contiguous(), v.contiguous(),
                       True, window if s > window else 0))
         # (query, key) pairs inside the causal window, as this data needs
-        pairs = (min(s, window) * (min(s, window) + 1) // 2
-                 + max(0, s - window) * window)
-        flops = 4 * 10 * 256 * pairs
-        nbytes = (2 * 10 + 2 * 1) * s * 256 * 2
-        bnd, by = bound(nbytes, flops, 989e12)
+        flops, nbytes = fa.work(1, 10, 1, s, s, 256, causal=True,
+                                window=window, itemsize=2)
+        bnd, by = bound(nbytes, flops, BF16_PEAK)
         print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = 3e-2); "
               f"kernel {ms * 1e3:.1f} us (turns {turns[0] * 1e3:.1f}/"
               f"{turns[3] * 1e3:.1f}), sdpa{' (mask)' if s > window else ''}"
@@ -1160,16 +1175,15 @@ def check_k2(torch):
         launch_fwd, launch_gated = k2_raw_launches(torch, rg, a, x, h0, gated)
         ms = time_median_ms(torch, launch_fwd, 20)
         plain = time_median_ms(torch, lambda: rglru_scan(a, x, h0), 1, reps=3)
-        n = s * 2560
-        bnd, by = bound(12 * n + 8 * 2560, 2 * n, OP_RATE)
+        ops, nbytes = rg.work(1, s, 2560)
+        bnd, by = bound(nbytes, ops, OP_RATE)
         g_ms = time_median_ms(torch, launch_gated, 20)
         g_plain = time_median_ms(torch, lambda: rglru_gated_scan(*gated), 1,
                                  reps=3)
         # gated: four bf16 (B, S, W) inputs and one output, three (W,)
-        # vectors, h_final; ~20 operations an element (bias adds, two
-        # sigmoids of 3, softplus product, two exps, 2x, 1 -, clamp,
-        # sqrt, two products, the step's 2, the branch product)
-        g_bnd, g_by = bound(10 * n + 10 * 2560, 20 * n, OP_RATE)
+        # vectors, h_final; ~20 operations an element (rg.gated_work)
+        g_ops, g_bytes = rg.gated_work(1, s, 2560, 2, with_h0=False)
+        g_bnd, g_by = bound(g_bytes, g_ops, OP_RATE)
         print(f"[k2] B=1 S={s} W=2560: rglru (f32) and the gated entry "
               f"(bf16, with and without the extreme inputs) bitwise equal "
               f"to their plain versions (tolerance: none); times on the "
@@ -1231,8 +1245,8 @@ def check_k3(torch):
         ms = time_median_ms(torch, lambda: wk.wkv6(r, k, v, w, u), 10)
         plain = time_median_ms(torch, lambda: wkv_scan(zero, r, k, v, w, u),
                                1, reps=3)
-        nbytes = 5 * s * 64 * 64 * 4 + 64 * 64 * 4 + 64 * 64 * 64 * 4
-        bnd, by = bound(nbytes, 4 * 64 * 64 * s * 64, OP_RATE)
+        ops, nbytes = wk.work(1, s, 64, 64)
+        bnd, by = bound(nbytes, ops, OP_RATE)
         print(f"[k3] S={s} f32: max abs err y {err_y:.3g}, state "
               f"{err_s:.3g} (atol = rtol = 2e-4); kernel {ms * 1e3:.1f} us, "
               f"plain {plain * 1e3:.1f} us, bound {bnd * 1e3:.2f} us ({by})")
@@ -3632,9 +3646,9 @@ def check_k4_audio(torch):
             torch, k4_raw_launch(torch, fa, q, k, v, False),
             sdpa_call(torch, q.contiguous(), k.contiguous(), v.contiguous(),
                       False))
-        flops = 4 * 12 * sq * sk * 64
-        nbytes = (2 * sq + 2 * sk) * 12 * 64 * 2
-        bnd, by = bound(nbytes, flops, 989e12)
+        flops, nbytes = fa.work(1, 12, 12, sq, sk, 64, causal=False,
+                                itemsize=2)
+        bnd, by = bound(nbytes, flops, BF16_PEAK)
         print(f"[k4] {name}: max abs err {err:.3g} (atol = rtol = 3e-2); "
               f"kernel {ms * 1e3:.1f} us (turns {turns[0] * 1e3:.1f}/"
               f"{turns[3] * 1e3:.1f}), sdpa {lib * 1e3:.1f} us (turns "
@@ -3704,7 +3718,6 @@ TRAIN_ARCH = "llama3.2-1b"
 TRAIN_STEPS = 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 1024, 2
 TRAIN_OPT = dict(peak_lr=3e-3, warmup_steps=1, total_steps=8)
-BF16_PEAK = 989e12           # H100 SXM dense bf16, FLOP/s (data sheet)
 PARITY_LAYERS = 2            # (b), (d): llama3.2-1b cut from 16 layers
 PARITY_BATCH, PARITY_SEQ = 2, 256
 PARITY_RTOL = 1e-5           # (b): loss and grad norm, cuda against cpu
@@ -3798,6 +3811,7 @@ def train_full(torch):
                                   seed=0))
     batches = [data.batch(i) for i in range(TRAIN_STEPS)]
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     fresh, walls, state = train_steps(torch, step, state, batches, tag,
                                       "fresh batches:")
     peak = torch.cuda.max_memory_allocated()
@@ -3833,6 +3847,7 @@ def train_full(torch):
     torch.cuda.empty_cache()
     return dict(fresh_losses=fresh, same_batch_losses=same, wall_s=wall,
                 tokens_s=tokens / wall, peak_gib=peak / 2**30,
+                peak_bytes=peak, before_bytes=before, n_params=n,
                 bf16_share=flops / wall / BF16_PEAK,
                 busy_us=trace["busy_us"], kernels=trace["kernels"],
                 wall_traced_us=trace["wall_us"])
@@ -4095,6 +4110,221 @@ def lm_training_phase(torch):
     return out
 
 
+# --------------------------------------------------------------- phase 18
+#: (b): the cells run for real on the card, each cut to fit: (arch, shape,
+#: batch, layers or None for all); and (a)'s cells run on meta only: a
+#: prefill and a decode cell a family, and long_500k for a long-context
+#: arch.  (a) runs no train cell: those took 35 s of the host's CPU on the
+#: card's machine (PERF.md §6, PR 23), which ``dryrun --all`` and the CPU
+#: tests cover; (c) runs one on meta and on the card.
+DRY_CARD = (("llama3.2-1b", "prefill_32k", 8, None),
+            ("llama3.2-1b", "decode_32k", 32, None),
+            ("recurrentgemma-2b", "prefill_32k", 1, None),
+            ("rwkv6-7b", "prefill_32k", 1, RWKV_LAYERS))
+DRY_META = (("internvl2-76b", "prefill_32k"),
+            ("internvl2-76b", "decode_32k"),
+            ("olmoe-1b-7b", "prefill_32k"), ("olmoe-1b-7b", "decode_32k"),
+            ("rwkv6-7b", "decode_32k"), ("recurrentgemma-2b", "decode_32k"),
+            ("whisper-small", "prefill_32k"), ("whisper-small", "decode_32k"),
+            ("recurrentgemma-2b", "long_500k"))
+#: (b), (c): |card peak - meta peak| allowed, over the bytes the step adds
+#: to its inputs (PERF.md §6, PR 23: set before the first card run)
+DRY_PEAK_RTOL, DRY_PEAK_ATOL = 0.05, 256 * 2**20
+#: the dry run's name of each kernel module's count
+DRY_KERNELS = {"flash_attention": "repro_torch.kernels.flash_attention",
+               "wkv6": "repro_torch.kernels.wkv6",
+               "rglru": "repro_torch.kernels.rglru"}
+
+
+def dry_spec(arch, shape, batch=None, layers=None, seq=None, **overrides):
+    """(spec, cell) of the dry run's cell ``arch`` x ``shape``, its batch,
+    length and depth cut as given (``None``: the cell's own); other
+    config fields from ``overrides``."""
+    from repro_torch.configs import SHAPES, ShapeCell, get_config
+    from repro_torch.launch.specs import cell_inputs
+    cfg = get_config(arch)
+    if layers is not None:
+        overrides["n_layers"] = layers
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    base = SHAPES[shape]
+    cell = ShapeCell(base.name, base.seq_len if seq is None else seq,
+                     base.global_batch if batch is None else batch, base.kind)
+    return cell_inputs(arch, cell, cfg), cell
+
+
+def launch_counts():
+    return {name: sys.modules[mod].LAUNCHES
+            for name, mod in DRY_KERNELS.items()}
+
+
+def dry_meta(spec, cell, tag):
+    """The step on meta under the counter: (counter, roofline, seconds)."""
+    from repro_torch.launch import cost, dryrun
+    t0 = time.perf_counter()
+    before = launch_counts()
+    ctr, out = dryrun.count_step(spec, cell)
+    del out
+    secs = time.perf_counter() - t0
+    if launch_counts() != before:
+        raise SystemExit(f"{tag} a kernel launched on meta: {before} -> "
+                         f"{launch_counts()}")
+    return ctr, cost.Roofline(ctr.flops, ctr.bytes).finalize(), secs
+
+
+def gib(n):
+    return f"{n / 2**30:.2f} GiB"
+
+
+def on_card(torch, spec):
+    """``spec`` with every meta tensor a zero tensor on the card (the
+    counts and the peak do not depend on values; drawing weights costs
+    ~1.2 ns a parameter)."""
+    from torch.utils._pytree import tree_map
+    args = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                          device="cuda")
+                    if isinstance(t, torch.Tensor) else t, spec.args)
+    return spec._replace(args=args)
+
+
+def peak_agrees(card, meta):
+    return abs(card - meta) <= DRY_PEAK_RTOL * meta + DRY_PEAK_ATOL
+
+
+def dry_card_cell(torch, arch, shape, batch, layers):
+    """(b) One cell on meta, then on the card (zero weights and inputs):
+    the card's launches == the meta run's kernel calls, the counter's
+    FLOPs on the card == meta's, the card's peak above its inputs within
+    the tolerance of meta's; then timed outside the counter (the second of
+    two calls) against the roofline."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    cut = f"batch {batch} of {SHAPES[shape].global_batch}" + (
+        f", {layers} of its layers" if layers else "")
+    tag = f"[dryrun {arch} {shape}]"
+    spec, cell = dry_spec(arch, shape, batch, layers)
+    meta, rl, meta_s = dry_meta(spec, cell, tag)
+    card = on_card(torch, spec)
+    del spec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_mem = torch.cuda.memory_allocated()
+    before = launch_counts()
+    ctr, out = dryrun.count_step(card, cell)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before_mem
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    launched = {k: v for k, v in launched.items() if v}
+    del out
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dryrun.run_step(card, cell)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del out
+    del card
+    torch.cuda.empty_cache()
+    meta_peak = meta.peak - meta.base
+    roof = max(rl.t_compute, rl.t_memory)
+    print(f"{tag} ({cut}) meta {meta_s:.1f} s: {meta.flops:.6e} FLOP, "
+          f"{meta.bytes:.6e} B, kernel calls {meta.kernel_calls}, peak "
+          f"{gib(meta.peak)} ({gib(meta.base)} inputs + {gib(meta_peak)}); "
+          f"card: launches {launched}, counter {ctr.flops:.6e} FLOP, "
+          f"{ctr.bytes:.6e} B, peak above inputs {gib(peak)} (meta "
+          f"{gib(meta_peak)}, {100 * (peak / meta_peak - 1):+.2f}%); wall "
+          f"{walls[-1] * 1e3:.1f} ms (first {walls[0] * 1e3:.1f}) against "
+          f"the roofline's {roof * 1e3:.1f} ms (Tc {rl.t_compute * 1e3:.1f}"
+          f", Tm {rl.t_memory * 1e3:.1f}, {rl.bottleneck}-bound): "
+          f"{100 * roof / walls[-1]:.1f}% of it")
+    if launched != meta.kernel_calls or ctr.kernel_calls != meta.kernel_calls:
+        raise SystemExit(f"{tag} launches {launched} (counter "
+                         f"{ctr.kernel_calls}) != meta kernel calls "
+                         f"{meta.kernel_calls}")
+    if ctr.flops != meta.flops:
+        raise SystemExit(f"{tag} FLOPs on the card {ctr.flops!r} != meta "
+                         f"{meta.flops!r}")
+    if not peak_agrees(peak, meta_peak):
+        raise SystemExit(f"{tag} peak {peak} B on the card, meta "
+                         f"{meta_peak} B: past {DRY_PEAK_RTOL:.0%} + "
+                         f"{gib(DRY_PEAK_ATOL)}")
+    return dict(launches=launched, flops=meta.flops, bytes=meta.bytes,
+                meta_s=meta_s, peak_card=peak, peak_meta=meta_peak,
+                wall_s=walls[-1], roofline_s=roof,
+                bound=rl.bottleneck)
+
+
+def dry_train_check(torch, trained):
+    """(c) Phase 17 (a)'s configuration (llama3.2-1b, 8 x 1024 tokens,
+    accum 2) on meta against phase 17's measured peak above its inputs,
+    and against the counter around one step of it on the card (zero
+    state): FLOPs equal, no kernel launched, the peak within the
+    tolerance."""
+    from repro_torch.launch import dryrun
+    tag = "[dryrun train]"
+    spec, cell = dry_spec(TRAIN_ARCH, "train_4k", TRAIN_BATCH,
+                          seq=TRAIN_SEQ, accum_steps=TRAIN_ACCUM)
+    meta, rl, meta_s = dry_meta(spec, cell, tag)
+    card = on_card(torch, spec)
+    del spec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_mem = torch.cuda.memory_allocated()
+    before = launch_counts()
+    ctr, out = dryrun.count_step(card, cell)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before_mem
+    del out, card
+    torch.cuda.empty_cache()
+    meta_peak = meta.peak - meta.base
+    p17 = trained["peak_bytes"] - trained["before_bytes"]
+    print(f"{tag} llama3.2-1b, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, accum "
+          f"{TRAIN_ACCUM}: meta {meta_s:.1f} s, {meta.flops:.6e} FLOP "
+          f"(8·N·T {8 * trained['n_params'] * TRAIN_BATCH * TRAIN_SEQ:.6e})"
+          f", {meta.bytes:.6e} B, peak {gib(meta.peak)} ({gib(meta.base)} "
+          f"inputs + {gib(meta_peak)}); one step on the card under the "
+          f"counter: {ctr.flops:.6e} FLOP, peak above inputs {gib(peak)}; "
+          f"phase 17 (a): peak {gib(trained['peak_bytes'])}, "
+          f"{gib(p17)} above its state ({100 * (p17 / meta_peak - 1):+.2f}%"
+          f" of meta); roofline {max(rl.t_compute, rl.t_memory):.3f} s a "
+          f"step ({rl.bottleneck}-bound) against phase 17's "
+          f"{trained['wall_s']:.3f} s")
+    if launch_counts() != before or ctr.kernel_calls or meta.kernel_calls:
+        raise SystemExit(f"{tag} a kernel launched on the training path")
+    if ctr.flops != meta.flops:
+        raise SystemExit(f"{tag} FLOPs on the card {ctr.flops!r} != meta "
+                         f"{meta.flops!r}")
+    for what, got in (("the counted step", peak), ("phase 17 (a)", p17)):
+        if not peak_agrees(got, meta_peak):
+            raise SystemExit(f"{tag} peak of {what} {got} B, meta "
+                             f"{meta_peak} B: past {DRY_PEAK_RTOL:.0%} + "
+                             f"{gib(DRY_PEAK_ATOL)}")
+    return dict(flops=meta.flops, peak_meta=meta_peak, peak_card=peak,
+                peak_phase17=p17, meta_s=meta_s)
+
+
+def dry_run_phase(torch, trained):
+    """Phase 18: the one-GPU dry run (``launch/dryrun.py``) on meta, held
+    against the card.  (a) its record line for (b)'s cells and a prefill
+    and a decode cell a family; (b) four cells for real on the card, cut to
+    fit; (c) phase 17 (a)'s training configuration."""
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    for arch, shape in DRY_META + tuple((a, s) for a, s, _, _ in DRY_CARD):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape)
+        print(f"[dryrun a] {dryrun.fmt_cell(rec)} kernel calls "
+              f"{rec.get('kernel_calls')} ({time.perf_counter() - t0:.1f} s)")
+        if rec["status"] != "ok":
+            raise SystemExit(f"[dryrun a] {arch} {shape}: {rec['status']}")
+    cells = {f"{a} {s}": dry_card_cell(torch, a, s, b, n)
+             for a, s, b, n in DRY_CARD}
+    train = dry_train_check(torch, trained)
+    print(f"[dryrun] phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return cells, train
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4137,7 +4367,8 @@ def main() -> int:
     learn = learning_phase(torch, pe, engine)
     fleet_pass, fleet = fleet_phase(torch, pe, snapshot, mc)
     families, k4_audio = family_phase(torch, fa)
-    lm_training_phase(torch)
+    trained = lm_training_phase(torch)
+    dry, _ = dry_run_phase(torch, trained["full"])
     if "--parent" in sys.argv:
         compare_parent(torch, sys.argv[sys.argv.index("--parent") + 1],
                        drain_inputs)
@@ -4149,6 +4380,10 @@ def main() -> int:
     k4_err = max([k4["max_abs_err"]]
                  + [r["max_abs_err"] for r in k4_local.values()]
                  + [r["max_abs_err"] for r in k4_audio.values()])
+    dry_paths = {name: {f"dryrun {cell}": rec["launches"][name]
+                        for cell, rec in dry.items()
+                        if rec["launches"].get(name)}
+                 for name in DRY_KERNELS}
     local = {key: k4_local[2048][key] for key in
              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(card_line())
@@ -4168,13 +4403,18 @@ def main() -> int:
              fleet_pass=fleet_pass,
              training_pass=learn["training_pass"]),
         dict(K1S, launches=k1s_launches, **k1s),
-        dict(K2, launches=rgemma[rg], **k2),
-        dict(K3, launches=rwkv[wk], **k3),
-        dict(K4, launches=llama[fa] + rgemma[fa] + sum(families.values()),
+        dict(K2, launches=rgemma[rg] + sum(dry_paths["rglru"].values()),
+             **k2, launches_by_path={"recurrentgemma-2b": rgemma[rg],
+                                     **dry_paths["rglru"]}),
+        dict(K3, launches=rwkv[wk] + sum(dry_paths["wkv6"].values()),
+             **k3, launches_by_path={"rwkv6-7b": rwkv[wk],
+                                     **dry_paths["wkv6"]}),
+        dict(K4, launches=llama[fa] + rgemma[fa] + sum(families.values())
+             + sum(dry_paths["flash_attention"].values()),
              **{**k4, "max_abs_err": k4_err},
              launches_by_path={"llama3.2-1b": llama[fa],
                                "recurrentgemma-2b": rgemma[fa],
-                               **families},
+                               **families, **dry_paths["flash_attention"]},
              recurrentgemma_local_s2048=local, **k4_audio)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

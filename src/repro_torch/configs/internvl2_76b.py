@@ -1,0 +1,4 @@
+"""Config module for --arch (see registry for the source entry)."""
+from repro_torch.configs.registry import INTERNVL2_76B as CONFIG
+
+__all__ = ["CONFIG"]

@@ -2,7 +2,9 @@
 
 Entry points default to ``cuda``; the CPU runs only when the caller asks
 for it.  A ``cuda`` request on a machine without a card raises instead of
-silently falling back to the host.
+silently falling back to the host.  ``meta`` (shapes and dtypes, no data)
+is taken when a caller names it: the dry run (``launch/dryrun.py``) builds
+models, caches and train states there to cost a step without allocating.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises if CUDA is asked for and
     absent, or a card index past the last card.  On CUDA it also pins
     float32 matmuls and convolutions to full precision (no TF32), so sums
-    of small integers stay exact."""
+    of small integers stay exact.  ``"meta"`` is returned as is."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -32,8 +34,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
                 f"device(s)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(dev)!r}: use cuda or cpu")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use cuda, cpu "
+                         f"or meta")
     return dev
 
 

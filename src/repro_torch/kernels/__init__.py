@@ -14,3 +14,12 @@ def refuse_autograd(entry: str, *tensors) -> None:
             f"{entry}: the kernel has no backward, and an input requires "
             f"a gradient; train on the plain version (backend='reference')"
             f" or call it under torch.no_grad()/inference_mode()")
+
+
+def address(t: torch.Tensor) -> int:
+    """``t``'s data address, for the alignment rules of the wrappers: on
+    meta (no data) its offset into a storage taken to start aligned, as
+    every fresh allocation of the caching allocator does."""
+    if t.device.type == "meta":
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()

@@ -11,7 +11,14 @@ built with ``nvcc`` at first use and called through ctypes
   * CPU tensors go to the plain version (the tests, ``--device cpu``);
   * CUDA tensors launch the kernel on the current stream, and every
     launch adds one to ``LAUNCHES``.  A failed build or launch raises:
-    nothing falls back to the plain version.
+    nothing falls back to the plain version;
+  * meta tensors (the dry run, ``launch/dryrun.py``) pass the same checks
+    and get what the CUDA branch allocates, written by nothing: no launch
+    and never the plain version, whose S x S scores the kernel does not
+    write.
+
+Each launch (or meta call) reports its ``work`` to an active
+``repro_torch.counting`` counter.
 
 The kernel reads q, k and v through their strides (the head dim must be
 contiguous), so the (B, S, H, D) projections of a model go in as
@@ -29,11 +36,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels import address, build, refuse_autograd
+from repro_torch import counting
 from repro_torch.models.attention import full_attention
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
@@ -83,7 +91,7 @@ def tma_ready(t: torch.Tensor) -> bool:
     multiple of 16 bytes, nonzero where the dim has more than one entry
     (what a TMA tensor map takes)."""
     vec = 16 // t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    return (t.stride(-1) == 1 and address(t) % 16 == 0
             and all(s % vec == 0 and (s > 0 or n == 1)
                     for s, n in zip(t.stride()[:-1], t.shape[:-1])))
 
@@ -91,6 +99,43 @@ def tma_ready(t: torch.Tensor) -> bool:
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if ``tma_ready``, else a contiguous copy."""
     return t if tma_ready(t) else t.contiguous()
+
+
+def _masked_pairs(sq: int, sk: int, w: int) -> int:
+    """Pairs (i, j), i < sq, j < sk, with i - w < j <= i: the exact
+    count, in closed form."""
+    n = min(sq, sk)                 # rows i < sk: min(i + 1, w) keys
+    m = min(n, w)
+    total = m * (m + 1) // 2 + (n - m) * w
+    if sq > sk:                     # rows i >= sk: the keys left of sk
+        total += max(0, min(sq, w) - sk) * sk
+        lo, hi = max(sk, w), min(sq, sk + w - 1)
+        if hi > lo:                 # sk + w - 1 - i keys each
+            total += (hi - lo) * ((sk + w - 1 - lo) + (sk + w - hi)) // 2
+    return total
+
+
+def causal_pairs(sq: int, sk: int, causal: bool, window: int) -> float:
+    """(query, key) pairs the kernel attends over.  With a window, or
+    causal with Sq != Sk, the exact count (keys at or before the query's
+    position, both counted from 0, and after ``q_pos - window``); causal
+    with Sq == Sk, half the square, as K4's bounds have always been
+    stated; else the whole square."""
+    if window > 0:
+        return _masked_pairs(sq, sk, window)
+    if not causal:
+        return sq * sk
+    return sq * sk / 2 if sq == sk else _masked_pairs(sq, sk, sq + sk)
+
+
+def work(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, *,
+         causal: bool, window: int = 0, itemsize: int = 2
+         ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call: two products of d a (query, key) pair
+    per query head; q read and the output written, k and v read once."""
+    flops = 4 * b * hq * d * causal_pairs(sq, sk, causal, window)
+    nbytes = (2 * hq * sq + 2 * hkv * sk) * b * d * itemsize
+    return flops, nbytes
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -112,14 +157,21 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          f"{HEAD_DIMS[q.dtype]} for {q.dtype}")
 
 
+def out_buffer(q: torch.Tensor) -> torch.Tensor:
+    """The kernel's output for ``q``: a (B, Sq, Hq, D) buffer as its
+    (B, Hq, Sq, D) view."""
+    b, hq, sq, d = q.shape
+    return torch.empty((b, sq, hq, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
 def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: int, scale: Optional[float]):
     """The output buffer and the C entry's arguments but the stream, for
     q, k, v that pass ``check_inputs`` and ``tma_ready``."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = out_buffer(q)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     block_n, stages = PLAN[d] if q.dtype == torch.bfloat16 else (0, 0)
@@ -145,12 +197,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return full_attention(q, k, v, causal=causal, local_window=window,
                               scale=scale)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
     check_inputs(q, k, v)
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k, v on different devices")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)   # alive past launch
+    if dev.type == "meta":
+        _count(q, k, causal, window)
+        return out_buffer(q)
     out, args = launch_args(q, k, v, causal=causal, window=window,
                             scale=scale)
     fn = _kernel()
@@ -160,4 +215,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES += 1
+    _count(q, k, causal, window)
     return out
+
+
+def _count(q: torch.Tensor, k: torch.Tensor, causal: bool,
+           window: int) -> None:
+    """One call and its ``work``, to the active counter if there is one
+    (``work`` is not computed otherwise)."""
+    if counting.active() is not None:
+        b, hq, sq, d = q.shape
+        counting.count_kernel("flash_attention", *work(
+            b, hq, k.shape[1], sq, k.shape[2], d, causal=causal,
+            window=window, itemsize=q.element_size()))

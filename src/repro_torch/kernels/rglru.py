@@ -17,7 +17,14 @@ Both take tensors on one device:
   * CPU tensors go to the plain version (the tests, ``--device cpu``);
   * CUDA tensors launch the kernel on the current stream, and every
     launch of either entry adds one to ``LAUNCHES``.  A failed build or
-    launch raises: nothing falls back to the plain version.
+    launch raises: nothing falls back to the plain version;
+  * meta tensors (the dry run) pass the same checks and get what the
+    CUDA branch allocates: no launch, and never the plain version's
+    per-token loop.
+
+Each launch (or meta call) of either entry reports its work
+(``work``, ``gated_work``) to an active ``repro_torch.counting``
+counter as one call of ``rglru``.
 
 ``rglru`` keeps the Pallas entry's order of outputs, ``(h_all,
 h_final)``; ``rglru_scan`` returns ``(h_final, h_all)``, as the
@@ -31,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build, refuse_autograd
+from repro_torch import counting
 from repro_torch.models import blocks_rnn
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
@@ -59,6 +67,26 @@ def plan(width: int, itemsize: int, ptrs: Sequence[int]) -> bool:
     start on a 16-byte boundary; False for one element a thread at a
     time (a ragged W, a misaligned view)."""
     return (width * itemsize) % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def work(b: int, s: int, w: int) -> Tuple[float, float]:
+    """(operations, bytes) of one ``rglru`` call: a product and a sum an
+    element; a and x read and h_all written, h0 read and h_final written,
+    all f32."""
+    n = b * s * w
+    return 2 * n, 12 * n + 8 * b * w
+
+
+def gated_work(b: int, s: int, w: int, itemsize: int, with_h0: bool
+               ) -> Tuple[float, float]:
+    """(operations, bytes) of one ``rglru_gated`` call: ~20 operations an
+    element (bias adds, two sigmoids of 3, the softplus product, two
+    exps, 2x, 1 -, clamp, sqrt, two products, the step's 2, the branch
+    product); gr, gi, u and branch read and y written, the three (W,)
+    vectors read, h_final written (and h0 read) in f32."""
+    n = b * s * w
+    nbytes = 5 * n * itemsize + 3 * w * itemsize + b * w * 4
+    return 20 * n, nbytes + (b * w * 4 if with_h0 else 0)
 
 
 def _check(entry: str, named, dtype, dev) -> None:
@@ -96,7 +124,7 @@ def rglru(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     if dev.type == "cpu":
         h_final, h_all = blocks_rnn.rglru_scan(a, x, h0)
         return h_all, h_final
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"rglru: unsupported device {dev}")
     if a.ndim != 3:
         raise ValueError(f"rglru: a must be (B, S, W), got "
@@ -111,11 +139,15 @@ def rglru(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     a, x, h0 = a.contiguous(), x.contiguous(), h0.contiguous()
     h_all = torch.empty((b, s, w), dtype=torch.float32, device=dev)
     h_final = torch.empty((b, w), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        counting.count_kernel("rglru", *work(b, s, w))
+        return h_all, h_final
     tma = plan(w, 4, [t.data_ptr() for t in (a, x, h_all)])
     with torch.cuda.device(dev):
         _launch(_kernel("rglru_fwd"),
                 (a.data_ptr(), x.data_ptr(), h0.data_ptr(),
                  h_all.data_ptr(), h_final.data_ptr(), b, s, w, int(tma)))
+    counting.count_kernel("rglru", *work(b, s, w))
     return h_all, h_final
 
 
@@ -143,7 +175,7 @@ def rglru_gated(gr: torch.Tensor, gi: torch.Tensor, u: torch.Tensor,
         if h_final is not None:
             hf = h_final.copy_(hf)
         return y, hf
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_gated: unsupported device {dev}")
     if gr.ndim != 3:
         raise ValueError(f"rglru_gated: gr must be (B, S, W), got "
@@ -172,6 +204,10 @@ def rglru_gated(gr: torch.Tensor, gi: torch.Tensor, u: torch.Tensor,
     if h0 is not None:
         h0 = h0.contiguous()
     y = torch.empty((b, s, w), dtype=gr.dtype, device=dev)
+    done = gated_work(b, s, w, gr.element_size(), h0 is not None)
+    if dev.type == "meta":
+        counting.count_kernel("rglru", *done)
+        return y, h_final
     tma = plan(w, gr.element_size(),
                [t.data_ptr() for t in (gr, gi, u, branch, y)])
     with torch.cuda.device(dev):
@@ -181,4 +217,5 @@ def rglru_gated(gr: torch.Tensor, gi: torch.Tensor, u: torch.Tensor,
                  igate_bias.data_ptr(), lam.data_ptr(),
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  h_final.data_ptr(), b, s, w, _DTYPES[gr.dtype], int(tma)))
+    counting.count_kernel("rglru", *done)
     return y, h_final

@@ -10,7 +10,13 @@ PyTorch version is ``models.blocks_rnn.wkv_scan`` from a zero state.
   * CPU tensors go to the plain version (the tests, ``--device cpu``);
   * CUDA tensors launch the kernel on the current stream, and every
     launch adds one to ``LAUNCHES``.  A failed build or launch raises:
-    nothing falls back to the plain version.
+    nothing falls back to the plain version;
+  * meta tensors (the dry run) pass the same checks and get what the
+    CUDA branch allocates: no launch, and never the plain version's
+    per-token loop.
+
+Each launch (or meta call) reports its ``work`` to an active
+``repro_torch.counting`` counter.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels import address, build, refuse_autograd
+from repro_torch import counting
 from repro_torch.models import blocks_rnn
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``).
@@ -45,7 +52,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and starting on a 16-byte boundary (the kernel
     copies 16 bytes at a time), copied only if it is not."""
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if address(t) % 16 == 0 else t.clone()
+
+
+def work(b: int, s: int, h: int, n: int) -> Tuple[float, float]:
+    """(operations, bytes) of one call: 4 a state element a step (the
+    bonus and decay products, the outer product's add, the read-out);
+    r, k, v, w read and y written, u read, the final state written, all
+    f32."""
+    ops = 4 * b * h * n * s * n
+    nbytes = 5 * b * s * h * n * 4 + h * n * 4 + b * h * n * n * 4
+    return ops, nbytes
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,7 +79,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state0 = torch.zeros((b, h, n, n), dtype=torch.float32)
         state, y = blocks_rnn.wkv_scan(state0, r, k, v, w, u)
         return y, state
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"wkv6: unsupported device {dev}")
     if r.ndim != 4:
         raise ValueError(f"wkv6: r must be (B, S, H, N), got "
@@ -85,6 +102,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, w, u = (_aligned(t) for t in (r, k, v, w, u))
     y = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
     state = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        counting.count_kernel("wkv6", *work(b, s, h, n))
+        return y, state
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -94,4 +114,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    counting.count_kernel("wkv6", *work(b, s, h, n))
     return y, state

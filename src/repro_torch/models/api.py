@@ -60,7 +60,9 @@ def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any]
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, Any],
             backend: str = "cuda") -> Tuple[torch.Tensor, Caches]:
-    """Builds no autograd graph, whatever the parameters require."""
+    """Builds no autograd graph, whatever the parameters require.
+    ``model``: a model or the reference's flat dict (``init_params``,
+    ``abstract_params``)."""
     return _impl(cfg, backend).prefill(cfg, model, batch, backend)
 
 

@@ -25,6 +25,10 @@ reference runs its plain attention there.
 
 Expert and router products are ``torch`` matmuls (the reference
 computes them outside any Pallas kernel).
+
+On meta tensors under a ``repro_torch.counting`` counter (the dry run),
+the chunk loop routes one chunk and counts the rest
+(``counting.trip_map``); on CPU and CUDA tensors it routes every chunk.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch import counting
 from repro_torch.models import attention, blocks_attn
 from repro_torch.models.common import ParamTable, matmul, rms_norm, rope
 
@@ -160,6 +165,10 @@ def _route_chunk_gather(cfg: ModelConfig, params, xc: torch.Tensor,
     return y, _aux(cfg, logits, probs, idx, keep.reshape(t, k))
 
 
+#: The weights every chunk's routing reads.
+_ROUTED = ("moe.router", "moe.w_gate", "moe.w_up", "moe.w_down")
+
+
 def moe_apply(cfg: ModelConfig, params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, Aux]:
     """x: (B, S, d).  Routed in chunks of ``MOE_CHUNK`` tokens (one
@@ -180,11 +189,19 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor
         y, aux = route_fn(cfg, params, tokens, max(
             int(m.top_k * n_tok * m.capacity_factor / m.n_experts), 4))
     else:
-        ys, auxs = zip(*(route_fn(cfg, params, xc, capacity)
-                         for xc in tokens.split(chunk)))
-        y = torch.cat(ys)
-        aux = {key: torch.stack([a[key] for a in auxs]).sum() / n_chunks
-               for key in auxs[0]}
+        if counting.tripping(tokens):
+            def body(xc, *ws):
+                return route_fn(cfg, {**params, **dict(zip(_ROUTED, ws))},
+                                xc, capacity)
+            y, stacked = counting.trip_map(body, tokens, chunk,
+                                       [params[k] for k in _ROUTED])
+        else:
+            ys, auxs = zip(*(route_fn(cfg, params, xc, capacity)
+                             for xc in tokens.split(chunk)))
+            y = torch.cat(ys)
+            stacked = {key: torch.stack([a[key] for a in auxs])
+                       for key in auxs[0]}
+        aux = {key: v.sum() / n_chunks for key, v in stacked.items()}
         aux["moe_dropped"] = aux["moe_dropped"] * n_chunks  # total
 
     y = y.reshape(b, s, d)

@@ -24,6 +24,11 @@ Block contract (shared with ``blocks_attn``):
   apply(cfg, params, x, *, mode, cache, positions, index, backend)
       -> (y, new_cache, aux)
 
+On meta tensors under a ``repro_torch.counting`` counter (the dry run), the
+per-token loops of ``wkv_scan`` and ``rglru_scan`` run two steps and
+count the rest (``counting.trip_scan``), differentiably; on CPU and CUDA
+tensors they run every step.
+
 ``mode`` is "prefill", "decode" or "train".  In decode the cache's
 tensors are updated in place; train returns no cache and runs the plain
 recurrences (``wkv_scan`` from a zero state, ``rglru_gated_scan``) under
@@ -41,6 +46,7 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import rglru as rglru_kernel
 from repro_torch.kernels import wkv6 as wkv6_kernel
+from repro_torch import counting
 from repro_torch.models.common import (ParamTable, layer_norm, matmul,
                                        rms_norm)
 
@@ -111,6 +117,8 @@ def wkv_scan(state: torch.Tensor, r, k, v, w, u
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequence WKV6, one ``wkv_step`` per token.  r/k/v/w: (B,S,H,N)
     f32; u: (H,N).  Returns (final_state, y (B,S,H,N))."""
+    if counting.tripping(r):
+        return counting.trip_scan(wkv_step, state, (r, k, v, w), (u,))
     ys = []
     for t in range(r.shape[1]):
         state, y = wkv_step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
@@ -353,10 +361,18 @@ def _causal_conv(params, x: torch.Tensor, state: Optional[torch.Tensor],
     return y + conv_b, padded[:, -(cw - 1):]
 
 
+def _rglru_step(h: torch.Tensor, a_t: torch.Tensor, gx_t: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = a_t * h + gx_t
+    return h, h
+
+
 def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t * h_{t-1} + gx_t, one step per token.  a/gx: (B, S, W)
     f32; h0: (B, W).  Returns (h_final (B, W), h_all (B, S, W))."""
+    if counting.tripping(a):
+        return counting.trip_scan(_rglru_step, h0, (a, gx))
     h = h0
     hs = []
     for t in range(a.shape[1]):

@@ -146,6 +146,15 @@ def init_params(key: KeyLike, table: ParamTable,
     return params
 
 
+def abstract_params(table: ParamTable,
+                    dtype: torch.dtype = torch.bfloat16) -> Params:
+    """The reference's ``abstract_params``: ``init_params``'s flat dict of
+    the table's (stacked) shapes as meta tensors, no data drawn or
+    allocated (the dry run's stand-ins for ``ShapeDtypeStruct``s)."""
+    return {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, (shape, _) in table.items()}
+
+
 class TableModule(nn.Module):
     """Parameters named by a table's dotted names, as nested submodules:
     ``{"attn.wq": shape}`` becomes ``self.attn.wq``, and

@@ -348,27 +348,29 @@ def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any]
     return loss, {"xent": loss, "loss": loss}
 
 
-def prefill(cfg: ModelConfig, model: EncDec, batch: Dict[str, Any],
+def prefill(cfg: ModelConfig, model, batch: Dict[str, Any],
             backend: str = "cuda") -> Tuple[torch.Tensor, Caches]:
     """``batch`` = {"tokens": (B, S), "frames": (B, S_enc, d)}; returns
-    (last-position logits (B, 1, V) f32, per-layer caches)."""
-    top, enc, dec = model.weights()
-    enc_out = _encode(cfg, top, enc, batch["frames"].to(model.device),
-                      backend)
+    (last-position logits (B, 1, V) f32, per-layer caches).  ``model``:
+    an ``EncDec`` or the reference's flat dict."""
+    top, enc, dec = weights(cfg, model)
+    enc_out = _encode(cfg, top, enc,
+                      batch["frames"].to(top["embed"].device), backend)
     x = _embed_tokens(cfg, top, batch["tokens"])
     x, caches = _dec_prefill(cfg, dec, x, enc_out, backend)
     return _logits(cfg, top, x[:, -1:]), caches
 
 
-def decode_step(cfg: ModelConfig, model: EncDec, caches: Caches,
+def decode_step(cfg: ModelConfig, model, caches: Caches,
                 batch: Dict[str, Any], backend: str = "cuda"
                 ) -> Tuple[torch.Tensor, Caches]:
     """``batch`` = {"tokens": (B, 1), "index": int position}; the self
     caches are written in place.  Decode runs no kernel, so ``backend``
-    changes nothing here."""
+    changes nothing here.  ``model``: an ``EncDec`` or the reference's
+    flat dict."""
     del backend
     index = int(batch["index"])
-    top, _, dec = model.weights()
+    top, _, dec = weights(cfg, model)
     x = embed(batch["tokens"], top["embed"])
     x = x + sinusoid(torch.tensor(index, device=x.device),
                      cfg.d_model).to(x.dtype)

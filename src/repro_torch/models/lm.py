@@ -357,25 +357,27 @@ def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any]
     return total, metrics
 
 
-def prefill(cfg: ModelConfig, model: LM, batch: Dict[str, Any],
+def prefill(cfg: ModelConfig, model, batch: Dict[str, Any],
             backend: str = "cuda") -> Tuple[torch.Tensor, Caches]:
     """Process the full prompt; return (last-position logits (B, 1, V)
-    f32, per-layer caches)."""
-    top, layers = model.weights()
+    f32, per-layer caches).  ``model``: an ``LM`` or the reference's flat
+    dict."""
+    top, layers = weights(cfg, model)
     x, positions = embed_inputs(cfg, top, batch, mode="prefill")
     x, caches, _ = run_blocks(cfg, layers, x, mode="prefill", caches=None,
                               positions=positions, backend=backend)
     return _logits(cfg, top, x[:, -1:]), caches
 
 
-def decode_step(cfg: ModelConfig, model: LM, caches: Caches,
+def decode_step(cfg: ModelConfig, model, caches: Caches,
                 batch: Dict[str, Any], backend: str = "cuda"
                 ) -> Tuple[torch.Tensor, Caches]:
     """One token for every sequence in the batch.
 
     ``batch`` = {"tokens": (B, 1), "index": int position}.  The caches
-    are written in place."""
-    top, layers = model.weights()
+    are written in place.  ``model``: an ``LM`` or the reference's flat
+    dict."""
+    top, layers = weights(cfg, model)
     x, positions = embed_inputs(cfg, top, batch, mode="decode")
     x, caches, _ = run_blocks(cfg, layers, x, mode="decode", caches=caches,
                               positions=positions, index=int(batch["index"]),

@@ -81,3 +81,10 @@ def init_error_buffers(params: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
             for k, v in params.items()}
+
+
+def abstract_error_buffers(params: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """``init_error_buffers``'s shapes as meta tensors (the dry run's)."""
+    return {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
+            for k, v in params.items()}

@@ -58,6 +58,16 @@ def init_opt_state(params: Params) -> OptState:
                     count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def abstract_opt_state(params: Params) -> OptState:
+    """``init_opt_state``'s shapes and dtypes as meta tensors (the dry
+    run's)."""
+    def moments() -> Params:
+        return {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                for k, p in params.items()}
+    return OptState(mu=moments(), nu=moments(),
+                    count=torch.empty((), dtype=torch.int32, device="meta"))
+
+
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """f32 constant on ``like``'s device (filled there: no host copy)."""
     return torch.full((), v, dtype=torch.float32, device=like.device)

@@ -7,6 +7,10 @@ error-feedback buffers, so a checkpoint of either package restores in
 the other with the same leaf names (``params/…``, ``opt/mu/…``,
 ``opt/nu/…``, ``opt/count``, ``ef/…``; an ``ef`` of None holds none).
 
+``abstract_train_state`` is the state's shapes on meta, for the dry
+run, where the microbatch loop runs one microbatch and counts the rest
+(``repro_torch.counting``).
+
 ``make_train_step(cfg, opt_cfg)`` returns ``step_fn(state, batch) ->
 (state, metrics)``, the reference's step: the batch split into
 ``accum_steps`` microbatches, each one's loss differentiated by
@@ -21,6 +25,7 @@ there is nothing to place (ROADMAP A11.7).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -28,11 +33,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch import counting
 from repro_torch.models import api
-from repro_torch.models.common import KeyLike, init_params
+from repro_torch.models.common import KeyLike, abstract_params, init_params
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
-                                         adamw_update, div, init_opt_state)
+                                         abstract_opt_state, adamw_update,
+                                         div, init_opt_state)
 
 Params = Dict[str, torch.Tensor]
 
@@ -58,6 +65,21 @@ def init_train_state(key: KeyLike, cfg: ModelConfig, *,
         params=params,
         opt=init_opt_state(params),
         ef=compression.init_error_buffers(params) if compress else None)
+
+
+def abstract_train_state(cfg: ModelConfig, *,
+                         compress: bool = False) -> TrainState:
+    """``init_train_state``'s shapes and dtypes as meta tensors, nothing
+    drawn (the reference's ``abstract_train_state``, the dry run's train
+    cells): bf16 parameters, trainable; f32 moments; f32 error buffers
+    when ``compress``."""
+    params = abstract_params(api.param_table(cfg))
+    for p in params.values():
+        p.requires_grad_(True)
+    return TrainState(
+        params=params,
+        opt=abstract_opt_state(params),
+        ef=compression.abstract_error_buffers(params) if compress else None)
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], accum: int
@@ -118,13 +140,17 @@ def make_train_step(cfg: ModelConfig,
                     for k, p in state.params.items()}
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             stack = []
-            for i in range(accum):
-                (loss, metrics), grads = grad_fn(
-                    state.params, {k: v[i] for k, v in mbs.items()})
-                for k, g in grads.items():
-                    gsum[k] += g.float()
-                lsum = lsum + loss
-                stack.append(metrics)
+            # on meta (the dry run) one microbatch runs and counts accum
+            trips = counting.tripping(lsum)
+            with counting.active().trip(accum) if trips else nullcontext():
+                for i in range(1 if trips else accum):
+                    (loss, metrics), grads = grad_fn(
+                        state.params, {k: v[i] for k, v in mbs.items()})
+                    for k, g in grads.items():
+                        gsum[k] += g.float()
+                    lsum = lsum + loss
+                    stack.append(metrics)
+            stack *= accum // len(stack)
             grads = {k: div(g, accum) for k, g in gsum.items()}
             loss = div(lsum, accum)
             metrics = {k: torch.mean(torch.stack([m[k] for m in stack]))

@@ -28,6 +28,8 @@ from repro.kernels import ops
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as tattn
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = 2e-5
 

@@ -29,6 +29,8 @@ from repro_torch.core import backfill as tbf
 from repro_torch.core import policies as tpol
 
 from conftest import make_cluster_state
+from torch_threads import one_thread  # noqa: F401
+
 
 N_SNAPSHOTS = 60
 MAX_JOBS = 48

@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.checkpoint import CheckpointManager as JManager
 from repro.cluster import chaos as jchaos
@@ -45,6 +46,8 @@ from repro_torch.core.events import BusReadError, Event, EventBus
 from repro_torch.core.fan import FanSpec
 from repro_torch.core.twin import SchedTwin
 from repro_torch.launch import twin_loop as tloop
+from torch_threads import one_thread  # noqa: F401
+
 
 ENG = DrainEngine("reference", device="cpu")
 JENG = JEngine("reference")

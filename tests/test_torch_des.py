@@ -17,6 +17,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import des as jdes
@@ -30,6 +31,8 @@ from repro_torch.core.policies import parse_pool as tparse
 from repro_torch.core.state import map_state
 
 from conftest import make_cluster_state
+from torch_threads import one_thread  # noqa: F401
+
 
 N_SNAPSHOTS = 60
 MAX_JOBS = 48

@@ -35,6 +35,8 @@ from repro.models.common import init_params as jinit
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import api, encdec
+from torch_threads import one_thread  # noqa: F401
+
 
 ARCH = "whisper-small"
 CPU = "cpu"

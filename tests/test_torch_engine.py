@@ -45,6 +45,8 @@ from repro_torch.core.policies import static_spec as tstatic
 from repro_torch.core.state import validate_invariants as tvalid
 
 from conftest import make_cluster_state
+from torch_threads import one_thread  # noqa: F401
+
 
 N_SNAPSHOTS = 60
 MAX_JOBS = 48

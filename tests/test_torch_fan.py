@@ -52,6 +52,8 @@ from repro_torch.core.fan import (FanSpec, dominance_keep, materialize_fan,
 from repro_torch.core.objective import (Distributional, as_distributional,
                                         parse_objective, validate_objective)
 from repro_torch.core.policies import parse_pool as tparse
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 TREF = TEngine("reference", device="cpu")

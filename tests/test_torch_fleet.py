@@ -56,6 +56,8 @@ from repro_torch.data.pipeline import prefetch
 from repro_torch.launch.mesh import FleetMesh, make_fleet_mesh
 from repro_torch.learn import TrainConfig, family_space, train
 from repro_torch.learn.strategy import draw_eps
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 REF = DrainEngine("reference", device="cpu")

@@ -9,7 +9,12 @@
   CPU, the twin's (the replay and the emulator's fast mode included)
   and the serving stack's alike, and every kernel
   wrapper (K1, K1', K2's two entries, K3, K4) raises for anything but
-  CPU or CUDA tensors.  The Monte-Carlo entry points (``decide_fan``,
+  CPU or CUDA tensors (K2, K3 and K4 also take the dry run's meta
+  tensors).  The new modules of the dry run (``counting.py``,
+  ``launch/cost.py``, ``specs.py``, ``dryrun.py``, ``roofline.py``,
+  ``configs/shapes.py`` and the ``configs/<arch>.py`` modules) are in
+  both checks above.
+  The Monte-Carlo entry points (``decide_fan``,
   ``decide_ensemble``, ``fan_grid``, ``race_grid``, ``decide_race``,
   ``pruned_fan_grid``, ``materialize_fan``, ``SchedTwin(fan=/race=/
   ensemble=)``, ``twin_loop --fan/--race/--ensemble/--prune``) too, and
@@ -336,9 +341,22 @@ def test_fleet_entry_points_raise_for_cuda_without_a_card():
             call()
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device other than CPU, CUDA or
+    meta (the three the model kernels' wrappers take)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 @pytest.mark.parametrize("kernel", ["wkv6", "flash_attention", "rglru",
                                     "rglru_gated"])
 def test_model_kernel_wrappers_refuse_other_devices(kernel):
+    """Any device but CPU, CUDA and meta (the dry run's, where each
+    wrapper counts its call and allocates its outputs:
+    ``tests/test_torch_cost.py``) is refused, and nothing is launched;
+    CPU tensors take the plain version."""
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
         build.load(kernel.replace("_gated", ""))
@@ -362,7 +380,7 @@ def test_model_kernel_wrappers_refuse_other_devices(kernel):
         wrapper, module = fa.flash_attention, fa
     launches = module.LAUNCHES
     with pytest.raises(ValueError, match="unsupported device"):
-        wrapper(*args)
+        wrapper(*(a.as_subclass(_Elsewhere) for a in args))
     out = wrapper(*(torch.zeros_like(a, device="cpu") for a in args))
     assert module.LAUNCHES == launches
     assert all(torch.isfinite(t).all() for t in

@@ -28,6 +28,7 @@ engine.
   name.
 """
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -54,6 +55,8 @@ from repro_torch.learn import (CEM, ES, TrainConfig, family_space,
                                load_trained_pool, static_seeds, train)
 from repro_torch.learn.strategy import (centered_rank_utilities, draw_eps,
                                         rank_fitness)
+from torch_threads import one_thread  # noqa: F401
+
 
 REF = DrainEngine("reference", device="cpu")
 JREF = JEngine("reference")
@@ -73,6 +76,30 @@ def split():
 @pytest.fixture(scope="module")
 def jsplit_():
     return jsplit(np.random.default_rng(3), JTRACE, 3, 2, 16)
+
+
+@pytest.fixture(scope="module")
+def runs(split, jsplit_, tmp_path_factory):
+    """``runs(who, **kw)``: the port's (``who="port"``) or the JAX
+    trainer's run of ``tiny_config(**kw)``, checkpointed, as (result,
+    checkpoint dir); each computed once for the module, so the cases
+    that train the same configuration share it (checkpointing changes no
+    result: ``test_checkpoint_resume_bitwise``)."""
+    done = {}
+
+    def run(who, **kw):
+        key = (who,) + tuple(sorted(kw.items()))
+        if key not in done:
+            ckpt = str(tmp_path_factory.mktemp(who))
+            if who == "port":
+                res = train(*split, tiny_config(**kw), engine=REF,
+                            checkpoint_dir=ckpt)
+            else:
+                res = jtrain(*jsplit_, tiny_config(JConfig, **kw),
+                             engine=JREF, checkpoint_dir=ckpt)
+            done[key] = (res, ckpt)
+        return done[key]
+    return run
 
 
 def tiny_config(cls=TrainConfig, **kw):
@@ -334,22 +361,23 @@ def _assert_same_run(port, ref, ctx=""):
 @pytest.mark.parametrize("objective", ["avg_wait", "score"])
 @pytest.mark.parametrize("strategy", ["cem", "es"])
 @pytest.mark.parametrize("family", ["lin", "wfp", "expf"])
-def test_train_matches_jax_trainer(split, jsplit_, family, strategy,
-                                   objective):
+def test_train_matches_jax_trainer(runs, family, strategy, objective):
     kw = dict(family=family, strategy=strategy, objective=objective,
               generations=2)
-    port = train(*split, tiny_config(**kw), engine=REF)
-    ref = jtrain(*jsplit_, tiny_config(JConfig, **kw), engine=JREF)
+    port, _ = runs("port", **kw)
+    ref, _ = runs("jax", **kw)
     _assert_same_run(port, ref, str(kw))
 
 
 def test_a_jax_trainer_checkpoint_resumes_in_the_port(split, jsplit_,
-                                                      tmp_path):
+                                                      tmp_path, runs):
     cfg = dict(family="wfp", generations=4)
     full = jtrain(*jsplit_, tiny_config(JConfig, **cfg), engine=JREF)
+    # a copy of the 2-generation JAX run's checkpoints (that run is
+    # test_train_matches_jax_trainer[wfp-cem-avg_wait]'s reference)
     ckpt = str(tmp_path / "jax")
-    jtrain(*jsplit_, tiny_config(JConfig, **dict(cfg, generations=2)),
-           engine=JREF, checkpoint_dir=ckpt)
+    shutil.copytree(runs("jax", family="wfp", strategy="cem",
+                         objective="avg_wait", generations=2)[1], ckpt)
     resumed = train(*split, tiny_config(**cfg), engine=REF,
                     checkpoint_dir=ckpt, resume=True)
     _assert_same_run(resumed, full)
@@ -361,12 +389,15 @@ def test_a_jax_trainer_checkpoint_resumes_in_the_port(split, jsplit_,
     assert int(pool.spec.family[0]) == int(jpool.spec.family[0]) == FAM_WFP
 
 
-def test_a_port_trainer_checkpoint_resumes_in_jax(split, jsplit_, tmp_path):
+def test_a_port_trainer_checkpoint_resumes_in_jax(split, jsplit_, tmp_path,
+                                                  runs):
     cfg = dict(family="expf", strategy="es", generations=4)
     full = train(*split, tiny_config(**cfg), engine=REF)
+    # a copy of the port's 2-generation run's checkpoints (that run is
+    # test_train_matches_jax_trainer[expf-es-avg_wait]'s)
     ckpt = str(tmp_path / "port")
-    train(*split, tiny_config(**dict(cfg, generations=2)), engine=REF,
-          checkpoint_dir=ckpt)
+    shutil.copytree(runs("port", family="expf", strategy="es",
+                         objective="avg_wait", generations=2)[1], ckpt)
     resumed = jtrain(*jsplit_, tiny_config(JConfig, **cfg), engine=JREF,
                      checkpoint_dir=ckpt, resume=True)
     _assert_same_run(full, resumed)

@@ -54,6 +54,8 @@ from repro_torch import convert
 from repro_torch.configs import ARCH_ORDER, get_config, get_smoke_config
 from repro_torch.models import api, common
 from repro_torch.serve.engine import _write_slot
+from torch_threads import one_thread  # noqa: F401
+
 
 ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
 NEW_ARCHS = ("deepseek-v2-lite-16b", "olmoe-1b-7b", "internvl2-76b",

@@ -43,6 +43,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import api, common
 from repro_torch.models import blocks_moe as bm
 from repro_torch.serve.engine import _write_slot
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL, ATOL = 1e-4, 1e-5
 CPU = "cpu"

@@ -39,6 +39,8 @@ from repro_torch.kernels import policy_eval as pe
 
 from conftest import make_cluster_state
 from test_torch_backfill import C1_STATE, TIE_STATES, _hand_state
+from torch_threads import one_thread  # noqa: F401
+
 
 POOLS = {"paper": PAPER_POOL, "extended": EXTENDED_POOL}
 CORPUS = [dict(max_jobs=32 + 16 * (seed % 3), seed=seed,

@@ -50,19 +50,9 @@ from repro.train import optimizer as jopt
 from repro.train import train_step as jts
 from repro_torch.configs import get_smoke_config
 from repro_torch.train import compression, optimizer, train_step
+from torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The port's CPU work here is many small ops: one intra-op thread
-    keeps them fast while pytest-xdist runs several workers on the
-    host's cores (the thread count is restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -133,7 +123,10 @@ def test_adamw_update_matches_jax(dt, clip):
     jc, tc = jopt.OptimizerConfig(**kw), optimizer.OptimizerConfig(**kw)
     jp = {k: jnp.asarray(0.05 * rng.standard_normal(s), jnp.float32
                          ).astype(jdt) for k, s in SHAPES.items()}
-    tp = {k: torch.from_numpy(_np(v)).to(dt) for k, v in jp.items()}
+    # a copy: the port updates its parameters in place, and JAX's arrays
+    # on the CPU share their buffer with ``np.asarray``; the jitted update
+    # runs asynchronously and could read the port's writes
+    tp = {k: torch.from_numpy(_np(v).copy()).to(dt) for k, v in jp.items()}
     jo, to = jopt.init_opt_state(jp), optimizer.init_opt_state(tp)
     update = jax.jit(lambda p, g, o: jopt.adamw_update(jc, p, g, o))
     lr_sum = 0.0

@@ -31,6 +31,8 @@ from repro_torch.core import policies as tpol
 from repro_torch.core.des import broadcast_state
 
 from conftest import make_cluster_state
+from torch_threads import one_thread  # noqa: F401
+
 
 #: Largest ulp distance between the two packages' keys where they go
 #: through pow/exp/expm1 (measured on these snapshots, then held).

@@ -25,6 +25,8 @@ import torch
 from repro.core import fan as jfan
 from repro_torch.core import fan as tfan
 from repro_torch.core import prng
+from torch_threads import one_thread  # noqa: F401
+
 
 SHAPES = [(), (2,), (1024,), (3, 5)]
 SEEDS = [0, 1, 42, 7919, 2**31 - 1, 2**31, 2**32 + 5, 2**40 + 3]

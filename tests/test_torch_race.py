@@ -51,6 +51,8 @@ from repro_torch.core.race import (RaceSpec, decide_race, normalize_race,
                                    race_grid, run_race)
 from repro_torch.core.twin import SchedTwin as TTwin
 from repro_torch.core.whatif import decide_ensemble
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 TREF = TEngine("reference", device="cpu")

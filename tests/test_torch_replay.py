@@ -44,6 +44,8 @@ from repro_torch.core.objective import parse_objective
 from repro_torch.core.policies import parse_pool as tparse
 from repro_torch.core.state import DONE, QUEUED
 from repro_torch.launch import twin_loop as tloop
+from torch_threads import one_thread  # noqa: F401
+
 
 MAX_JOBS = 64
 RTOL = 1e-5

@@ -49,6 +49,8 @@ from repro.models import blocks_rnn as jrnn
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import rglru as rg
 from repro_torch.models import blocks_rnn as trnn
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = 1e-5
 

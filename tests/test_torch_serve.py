@@ -65,6 +65,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import api
 from repro_torch.serve import Request, ServingEngine
 from repro_torch.serve.engine import _write_slot
+from torch_threads import one_thread  # noqa: F401
+
 
 ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
 NEW_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b", "whisper-small")

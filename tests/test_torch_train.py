@@ -50,20 +50,10 @@ from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import api, common
 from repro_torch.train import (OptimizerConfig, init_train_state,
                                make_train_step)
+from torch_threads import one_thread  # noqa: F401
 
 B, S = 2, 40
 CPU = "cpu"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The port's CPU work here is many small ops: one intra-op thread
-    keeps them fast while pytest-xdist runs several workers on the
-    host's cores (the thread count is restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -34,17 +34,8 @@ import torch
 
 from repro.launch import train as jtrain
 from repro_torch.launch import train
+from torch_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The port's CPU work here is many small ops: one intra-op thread
-    keeps them fast while pytest-xdist runs several workers on the
-    host's cores (the thread count is restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--steps", "20",
          "--log-every", "5", "--batch", "4", "--seq", "64"]

@@ -25,17 +25,8 @@ from repro_torch import convert
 from repro_torch.configs import ARCH_ORDER, get_smoke_config
 from repro_torch.core import prng
 from repro_torch.models import api, common
+from torch_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The port's CPU work here is many small ops: one intra-op thread
-    keeps them fast while pytest-xdist runs several workers on the
-    host's cores (the thread count is restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -44,6 +44,8 @@ from repro_torch.core.events import Event as TEvent
 from repro_torch.core.events import EventKind as TKind
 from repro_torch.core.policies import parse_pool as tparse
 from repro_torch.launch import twin_loop as tloop
+from torch_threads import one_thread  # noqa: F401
+
 
 ARGS = ["--trace", "poisson", "--jobs", "30", "--nodes", "16", "--seed", "3"]
 

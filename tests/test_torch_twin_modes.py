@@ -34,6 +34,8 @@ from repro_torch.core.guard import GuardSpec as TGuardSpec
 from repro_torch.core.race import RaceSpec
 from repro_torch.core.twin import SchedTwin as TTwin
 from repro_torch.launch import twin_loop as tloop
+from torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 TREF = TEngine("reference", device="cpu")

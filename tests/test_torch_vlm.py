@@ -28,6 +28,8 @@ from repro.models.common import init_params as jinit
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import api
+from torch_threads import one_thread  # noqa: F401
+
 
 ARCH = "internvl2-76b"
 CPU = "cpu"

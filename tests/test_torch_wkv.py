@@ -27,6 +27,8 @@ from repro.kernels import ops
 from repro.models import blocks_rnn as jrnn
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.models import blocks_rnn as trnn
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = 2e-4
 
