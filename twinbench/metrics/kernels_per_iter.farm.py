@@ -1,0 +1,2 @@
+"""Device kernels a replay iteration in the traced window."""
+from twinbench.readers import kernels_per_iter as read  # noqa: F401
