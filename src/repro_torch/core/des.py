@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.backfill import priority_order, schedule_pass
 from repro_torch.core.state import DONE, QUEUED, RUNNING, SimState, map_state
 
@@ -261,62 +262,76 @@ def make_replay_step(arrival_t: torch.Tensor, true_rt: torch.Tensor,
     are masked with ``live`` (the pass starts only queued jobs, so when
     no live fork has one the mask empties it: the same bits).
     ``pass_invocations`` still counts the reference's passes: steps
-    where the condition held and, with ``elide_empty``, ``limit > 0``."""
+    where the condition held and, with ``elide_empty``, ``limit > 0``.
+
+    Under a profiler the step's parts are ranges
+    (``telemetry.SpanRecorder.phase``):
+    ``replay.event``, ``replay.apply``, ``replay.pass`` (the rank limit,
+    ``replay.order`` inside it, then the pass) and ``replay.starts``."""
     J = arrival_t.shape[1]
     slots = torch.arange(J, dtype=torch.int32, device=arrival_t.device)
+    phase = telemetry.SPANS.phase
 
     def step(c: ReplayCarry) -> ReplayCarry:
         jobs = c.st.jobs
-        next_arr, cur = _next_arrival(c.cursor, arrival_t)
-        running = jobs.state == RUNNING
-        queued_any = (jobs.state == QUEUED).any(1)
-        go = _work_left(c, next_arr, running.any(1), queued_any)  # flag
+        with phase("replay.event"):
+            next_arr, cur = _next_arrival(c.cursor, arrival_t)
+            running = jobs.state == RUNNING
+            queued_any = (jobs.state == QUEUED).any(1)
+            go = _work_left(c, next_arr, running.any(1), queued_any)  # flag
 
-        # ---- pick each fork's next event -----------------------------
-        te = torch.where(running, c.true_end, torch.inf)
-        next_end = te.amin(1)
-        # among simultaneous actual ends, retire the earliest started
-        # (the host heap pops end events in push == start order)
-        at_min = running & (te <= next_end[:, None])
-        j_end = torch.argmin(torch.where(at_min, c.start_ord, _ORD_NONE), 1)
-        is_arr = next_arr <= next_end          # equal times: arrival first
-        t_ev = torch.minimum(next_arr, next_end)
-        has_event = torch.isfinite(t_ev)
-        dead = c.dead | (go & ~has_event & queued_any)
-        live = has_event & ~dead & go
+            # ---- pick each fork's next event -------------------------
+            te = torch.where(running, c.true_end, torch.inf)
+            next_end = te.amin(1)
+            # among simultaneous actual ends, retire the earliest started
+            # (the host heap pops end events in push == start order)
+            at_min = running & (te <= next_end[:, None])
+            j_end = torch.argmin(torch.where(at_min, c.start_ord,
+                                             _ORD_NONE), 1)
+            is_arr = next_arr <= next_end      # equal times: arrival first
+            t_ev = torch.minimum(next_arr, next_end)
+            has_event = torch.isfinite(t_ev)
+            dead = c.dead | (go & ~has_event & queued_any)
+            live = has_event & ~dead & go
 
-        # ---- inject the arrival (slot = cursor) ----------------------
-        arr = live & is_arr
-        hit_arr = (slots[None, :] == cur[:, None]) & arr[:, None]
-        jstate = torch.where(hit_arr, QUEUED, jobs.state)
-        cursor = c.cursor + arr.to(torch.int64)
+        with phase("replay.apply"):
+            # ---- inject the arrival (slot = cursor) ------------------
+            arr = live & is_arr
+            hit_arr = (slots[None, :] == cur[:, None]) & arr[:, None]
+            jstate = torch.where(hit_arr, QUEUED, jobs.state)
+            cursor = c.cursor + arr.to(torch.int64)
 
-        # ---- retire the completion at its TRUE end time --------------
-        fin = live & ~is_arr
-        hit_end = (slots[None, :] == j_end[:, None]) & fin[:, None]
-        jstate = torch.where(hit_end, DONE, jstate)
-        end_t = torch.where(hit_end, c.true_end, jobs.end_t)
-        freed = torch.where(hit_end, jobs.nodes, 0).sum(1, dtype=torch.int32)
-        st = c.st._replace(
-            jobs=jobs._replace(state=jstate, end_t=end_t),
-            free_nodes=c.st.free_nodes + freed,
-            now=torch.where(live, t_ev, c.st.now))
+            # ---- retire the completion at its TRUE end time ----------
+            fin = live & ~is_arr
+            hit_end = (slots[None, :] == j_end[:, None]) & fin[:, None]
+            jstate = torch.where(hit_end, DONE, jstate)
+            end_t = torch.where(hit_end, c.true_end, jobs.end_t)
+            freed = torch.where(hit_end, jobs.nodes, 0).sum(
+                1, dtype=torch.int32)
+            st = c.st._replace(
+                jobs=jobs._replace(state=jstate, end_t=end_t),
+                free_nodes=c.st.free_nodes + freed,
+                now=torch.where(live, t_ev, c.st.now))
 
         # ---- one scheduling pass on the whole batch ------------------
-        limit = pass_rank_limit(st, live)
-        started = pass_fn(st, order_fn(st),
-                          limit if dynamic_bounds else None) & live[:, None]
-        st = apply_starts(st, started)
-        true_end = torch.where(started, st.now[:, None] + true_rt,
-                               c.true_end)
-        start_ord = torch.where(started, c.it * (J + 1) + slots[None, :],
-                                c.start_ord)
-        ran = go & (limit[0] > 0) if elide_empty else go
-        return ReplayCarry(
-            st=st, cursor=cursor, true_end=true_end, start_ord=start_ord,
-            it=c.it + go.to(torch.int32), dead=dead,
-            events=c.events + live.to(torch.int32),
-            passes=c.passes + ran.to(torch.int32))
+        with phase("replay.pass"):
+            limit = pass_rank_limit(st, live)
+            with phase("replay.order"):
+                order = order_fn(st)
+            started = pass_fn(st, order, limit if dynamic_bounds else None)
+            started = started & live[:, None]
+        with phase("replay.starts"):
+            st = apply_starts(st, started)
+            true_end = torch.where(started, st.now[:, None] + true_rt,
+                                   c.true_end)
+            start_ord = torch.where(started, c.it * (J + 1) + slots[None, :],
+                                    c.start_ord)
+            ran = go & (limit[0] > 0) if elide_empty else go
+            return ReplayCarry(
+                st=st, cursor=cursor, true_end=true_end, start_ord=start_ord,
+                it=c.it + go.to(torch.int32), dead=dead,
+                events=c.events + live.to(torch.int32),
+                passes=c.passes + ran.to(torch.int32))
     return step
 
 
@@ -342,20 +357,32 @@ def simulate_replay_batched(states: SimState, arrival_t: torch.Tensor,
     the pass.  A fork with no next event freezes: done if nothing is
     queued, deadlocked if a queued job remains.  The bound is 2·J + 2
     iterations.  The host runs blocks of ``REPLAY_BLOCK`` steps, never
-    past that bound, and reads the condition once after each block."""
+    past that bound, and reads the condition once after each block.
+
+    It records a ``replay`` span (``core.telemetry``) holding one
+    ``replay.read`` span a block around the read alone (the host's wait
+    for the card), and counts ``replay.steps`` (steps dispatched) and,
+    as a device tensor, ``replay.iters``."""
     J = states.jobs.capacity
     max_iters = 2 * J + 2
-    step = make_replay_step(arrival_t, true_rt, order_fn, pass_fn,
-                            dynamic_bounds, elide_empty)
-    c = replay_init(states)
-    done = 0
-    while done < max_iters:
-        n = min(REPLAY_BLOCK, max_iters - done)
-        for _ in range(n):
-            c = step(c)
-        done += n
-        if not bool(replay_cond(c, arrival_t)):   # the block's one read
-            break
+    spans = telemetry.SPANS
+    with spans.span("replay"):
+        step = make_replay_step(arrival_t, true_rt, order_fn, pass_fn,
+                                dynamic_bounds, elide_empty)
+        c = replay_init(states)
+        done = 0
+        while done < max_iters:
+            n = min(REPLAY_BLOCK, max_iters - done)
+            for _ in range(n):
+                c = step(c)
+            done += n
+            flag = replay_cond(c, arrival_t)
+            with spans.span("replay.read"):
+                more = bool(flag)                 # the block's one read
+            if not more:
+                break
+        spans.count("replay.steps", done)
+        spans.count("replay.iters", c.it)
     return ReplayResult(state=c.st, events=c.events, iters=c.it,
                         deadlocked=c.dead, pass_invocations=c.passes)
 

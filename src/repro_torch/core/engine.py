@@ -47,7 +47,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import prng, scoring
+from repro_torch.core import prng, scoring, telemetry
 from repro_torch.core.backfill import (priority_order, schedule_pass_batched,
                                        static_priority_order)
 from repro_torch.core.des import (DrainMetrics, DrainResult, ReplayResult,
@@ -526,17 +526,20 @@ class DrainEngine:
 
     def _replay(self, scenarios, pool, objective, weights, grid: bool
                 ) -> ReplayOutcome:
-        goal = resolve_goal(objective, weights)
-        pool = as_pool(pool)
-        S = int(scenarios.total_nodes.shape[0])
-        P = pool_size(pool)
-        plan = self.plan(pool)                 # fork f = s·P + p
-        res, metrics = _replay_impl(
-            self, *replay_inputs(scenarios, pool, self.device),
-            plan * S if plan is not None else None)
-        costs, best = grid_select(goal, metrics, res.deadlocked, P)
-        return _shape_outcome(res, metrics, (S, P) if grid else (P,),
-                              costs, best)
+        """One grid, recorded as a ``grid`` span (``core.telemetry``)
+        around the ``replay`` span of its loop."""
+        with telemetry.SPANS.span("grid"):
+            goal = resolve_goal(objective, weights)
+            pool = as_pool(pool)
+            S = int(scenarios.total_nodes.shape[0])
+            P = pool_size(pool)
+            plan = self.plan(pool)             # fork f = s·P + p
+            res, metrics = _replay_impl(
+                self, *replay_inputs(scenarios, pool, self.device),
+                plan * S if plan is not None else None)
+            costs, best = grid_select(goal, metrics, res.deadlocked, P)
+            return _shape_outcome(res, metrics, (S, P) if grid else (P,),
+                                  costs, best)
 
 
 def _drain_impl(engine: DrainEngine, states: SimState, pool: EnginePool,

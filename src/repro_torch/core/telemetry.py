@@ -1,9 +1,18 @@
-"""Twin telemetry: per-cycle latency, decisions, policy mix (Table 1)."""
+"""Twin telemetry: per-cycle latency, decisions, policy mix (Table 1),
+and the spans and counters the replay records (``SpanRecorder``)."""
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import itertools
+import math
+import statistics
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+import torch
 
 
 @dataclasses.dataclass
@@ -203,14 +212,19 @@ class Telemetry:
 
     # ---- overhead (paper: "a few seconds per scheduling cycle") -------
     def cycle_latency_stats(self) -> Dict[str, float]:
+        """Mean, median, p95 (nearest rank) and max of the cycles' wall
+        times; the median of an even count is the mean of the two middle
+        values."""
         if not self.cycles:
-            return {"mean_s": 0.0, "max_s": 0.0, "p50_s": 0.0, "n": 0}
+            return {"mean_s": 0.0, "max_s": 0.0, "p50_s": 0.0,
+                    "p95_s": 0.0, "n": 0}
         ws = sorted(c.wall_seconds for c in self.cycles)
         n = len(ws)
         return {
             "mean_s": sum(ws) / n,
             "max_s": ws[-1],
-            "p50_s": ws[n // 2],
+            "p50_s": statistics.median(ws),
+            "p95_s": ws[max(0, math.ceil(0.95 * n) - 1)],
             "n": n,
         }
 
@@ -230,3 +244,152 @@ class StopWatch:
     def __exit__(self, *exc) -> Optional[bool]:
         self.seconds = self._clock() - self._t0
         return None
+
+
+# ----------------------------------------------------------------------
+# Spans and counters: what the replay records of its own work.
+# ----------------------------------------------------------------------
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records on this thread now (a check
+    of a fraction of a microsecond; a profiler range costs tens)."""
+    return torch._C._autograd._profiler_enabled()
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _host_range(name: str):
+    """A profiler range among the host's ops.  Not ``record_function``:
+    its user-scope ranges also land on the device timeline (as GPU user
+    annotations), where a reader of the trace counts them as device
+    work."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+@dataclasses.dataclass
+class Span:
+    """One timed region: its name, its id, its root's and its parent's
+    (None on a root), and the recorder's clock at both ends (ns)."""
+    name: str
+    id: int
+    root: int
+    parent: Optional[int]
+    start_ns: int = 0
+    end_ns: int = 0
+    _range: Any = dataclasses.field(default=None, init=False, repr=False,
+                                    compare=False)
+
+    @property
+    def ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+@dataclasses.dataclass
+class SpanTree:
+    """A root span, the spans opened under it in opening order (the root
+    first), and the counts attached to it."""
+    spans: List[Span]
+    counters: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
+
+    @property
+    def root(self) -> Span:
+        return self.spans[0]
+
+    def named(self, name: str) -> List[Span]:
+        return [s for s in self.spans if s.name == name]
+
+    def children(self, span: Span) -> List[Span]:
+        return [s for s in self.spans if s.parent == span.id]
+
+    def self_ns(self, span: Span) -> int:
+        """The span's time less its children's (one thread's children
+        never overlap)."""
+        return span.ns - sum(c.ns for c in self.children(span))
+
+    def counts(self) -> Dict[str, int]:
+        """Each counter summed; a count kept as a device tensor is read
+        to the host here."""
+        return {k: sum(int(v) for v in vs)
+                for k, vs in self.counters.items()}
+
+
+class SpanRecorder:
+    """Spans and counters kept in memory: ``roots``, the last ``keep``
+    finished roots, oldest first; no exporter.
+
+    A span opened while another is open on the same thread nests under
+    it; one opened with none open starts a root (threads keep their own
+    stacks).  Counters attach to the open root.  While a
+    ``torch.profiler`` records, every open span also holds a profiler
+    range of its name among the host's ops, on the trace's one clock
+    with the kernels; a span opened before the profiler started gets its
+    range at the first span or ``phase`` opened under it while it
+    records.
+    ``clock`` (ns) is injectable, as ``StopWatch``'s is."""
+
+    def __init__(self, clock: Callable[[], int] = time.perf_counter_ns,
+                 keep: int = 512):
+        self.clock = clock
+        self.roots: Deque[SpanTree] = collections.deque(maxlen=keep)
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+
+    def _stack(self) -> List[Span]:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack, self._local.tree = [], None
+            return self._local.stack
+
+    def _open_ranges(self) -> None:
+        for s in self._stack():                # outermost first
+            if s._range is None:
+                s._range = _host_range(s.name)
+                s._range.__enter__()
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        stack = self._stack()
+        sid = next(self._ids)
+        if stack:
+            tree = self._local.tree
+            s = Span(name, sid, tree.root.id, stack[-1].id)
+            tree.spans.append(s)
+        else:
+            s = Span(name, sid, sid, None)
+            tree = self._local.tree = SpanTree([s])
+        stack.append(s)
+        if profiling():
+            self._open_ranges()
+        s.start_ns = self.clock()
+        try:
+            yield s
+        finally:
+            s.end_ns = self.clock()
+            stack.pop()
+            if s._range is not None:
+                s._range.__exit__(None, None, None)
+                s._range = None
+            if not stack:
+                self._local.tree = None
+                self.roots.append(tree)
+
+    def count(self, name: str, value) -> None:
+        """Add ``value`` to the open root's counter ``name`` (nothing
+        when no span is open).  A device tensor is kept as it is and read
+        only by ``SpanTree.counts``, so counting adds no host read."""
+        if self._stack():
+            self._local.tree.counters.setdefault(name, []).append(value)
+
+    def phase(self, name: str):
+        """A profiler range ``name`` below span level while a profiler
+        records on this thread; otherwise nothing is recorded."""
+        if not profiling():
+            return _NO_RANGE
+        self._open_ranges()
+        return _host_range(name)
+
+
+#: The process's recorder: the replay path records into it.
+SPANS = SpanRecorder()

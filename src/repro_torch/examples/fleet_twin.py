@@ -60,7 +60,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     print("policy mix:", {k: f"{v:.0f}%" for k, v in
                           twin.telemetry.policy_start_distribution().items()})
     lat = twin.telemetry.cycle_latency_stats()
-    print(f"decision latency p50 {lat['p50_s'] * 1e3:.1f} ms over "
+    print(f"decision latency p50 {lat['p50_s'] * 1e3:.1f} ms, "
+          f"p95 {lat['p95_s'] * 1e3:.1f} ms over "
           f"{lat['n']} cycles (paper: 'a few seconds')")
 
 

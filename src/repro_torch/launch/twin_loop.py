@@ -352,7 +352,8 @@ def print_report(report: RunReport, twin: SchedTwin, bus: EventBus,
                   f"stops {stops}")
     lat = twin.telemetry.cycle_latency_stats()
     print(f"cycle latency: mean {lat['mean_s'] * 1e3:.1f} ms, "
-          f"p50 {lat['p50_s'] * 1e3:.1f} ms over {lat['n']} cycles")
+          f"p50 {lat['p50_s'] * 1e3:.1f} ms, "
+          f"p95 {lat['p95_s'] * 1e3:.1f} ms over {lat['n']} cycles")
     res = twin.telemetry.resilience_stats()
     print(f"resilience: miss_rate={res['miss_rate']:.3f} "
           f"(misses={res['deadline_misses']}/{res['cycles']}, "

@@ -67,6 +67,9 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
 * A block of ``des.REPLAY_BLOCK`` replay steps under
   ``torch.cuda.set_sync_debug_mode("error")``: no step waits for the
   device.
+* The replay under a CUDA ``torch.profiler``: its spans and phases
+  (``core.telemetry``) are host ranges, on no device event, and the
+  grid is bitwise an unprofiled one's.
 * K1 at the Monte-Carlo paths' fork counts, k = 2048 (a 64-member fan
   of the k=32 pool) and 16,384 (S·F·P = 8 × 64 × 32), on tight random
   forks: bitwise its plain version, one launch each.
@@ -730,6 +733,33 @@ def test_replay_block_does_not_synchronise():
     assert int(c.it) == int(want.result.iters) > 2 * des.REPLAY_BLOCK
     assert torch.equal(c.st.jobs.start_t, want.result.state.jobs.start_t)
     assert torch.equal(c.events, want.result.events)
+
+
+@pytest.mark.cuda
+def test_replay_ranges_stay_on_the_host():
+    """A reader of the device trace counts every device event as work,
+    so the replay's ranges must not land there."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    scen, pool = _replay_grids()[0]
+    engine = DrainEngine("cuda", device="cuda")
+    want = engine.replay_grid(scen, pool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = engine.replay_grid(scen, pool)
+        torch.cuda.synchronize()
+    ranges = {"grid", "replay", "replay.read", "replay.event",
+              "replay.apply", "replay.order", "replay.pass",
+              "replay.starts"}
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = {e.name for e in prof.events() if e.device_type == cuda}
+    host = {e.name for e in prof.events() if e.device_type != cuda}
+    assert ranges <= host and not ranges & dev
+    assert any("pass_kernel" in n for n in dev)
+    for name in ("start_t", "end_t", "deadlocked", "events", "costs",
+                 "best"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 @pytest.mark.cuda
