@@ -13,7 +13,9 @@ and stack traces into the replay engine's scenario axis; ``read_swf`` /
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -253,33 +255,76 @@ def stack_scenarios(traces: Sequence[Sequence[JobSpec]],
     identical results).  Traces must be in submission order — slot
     index is the arrival cursor — and every job must fit its scenario's
     cluster *or* the replay will flag that scenario deadlocked.
-    """
-    S = len(traces)
-    if S == 0:
-        raise ValueError("need at least one trace")
-    if isinstance(total_nodes, (int, np.integer)):
-        totals = [int(total_nodes)] * S
-    else:
-        totals = [int(t) for t in total_nodes]
-        if len(totals) != S:
-            raise ValueError(
-                f"{len(totals)} total_nodes for {S} traces")
-    longest = max(len(t) for t in traces)
-    if max_jobs is None:
-        max_jobs = max(64, 1 << int(np.ceil(np.log2(max(longest, 1) + 1))))
-    if longest > max_jobs:
-        raise ValueError(f"longest trace has {longest} jobs > {max_jobs}")
 
-    shape = (S, max_jobs)
-    out = ScenarioSet(
-        submit_t=np.zeros(shape, dtype=np.float32),
-        nodes=np.zeros(shape, dtype=np.int32),
-        est_runtime=np.zeros(shape, dtype=np.float32),
-        true_runtime=np.zeros(shape, dtype=np.float32),
-        valid=np.zeros(shape, dtype=bool),
-        n_jobs=np.asarray([len(t) for t in traces], dtype=np.int32),
-        total_nodes=np.asarray(totals, dtype=np.int32),
-    )
+    Lists of ``JobSpec`` with exact ``int`` ids and nodes and exact
+    ``float`` times are read in one native pass (``csrc/stack_scenarios.c``);
+    any other input, or one that fails a check, takes the plain loop,
+    which gives the same tables and raises the same errors.  A ``stack``
+    span counts the jobs (``stack.jobs``) and those the native pass
+    wrote (``stack.native_jobs``).
+    """
+    from repro_torch.core import telemetry
+    spans = telemetry.SPANS
+    with spans.span("stack"):
+        S = len(traces)
+        if S == 0:
+            raise ValueError("need at least one trace")
+        if isinstance(total_nodes, (int, np.integer)):
+            totals = [int(total_nodes)] * S
+        else:
+            totals = [int(t) for t in total_nodes]
+            if len(totals) != S:
+                raise ValueError(
+                    f"{len(totals)} total_nodes for {S} traces")
+        longest = max(len(t) for t in traces)
+        if max_jobs is None:
+            max_jobs = max(64,
+                           1 << int(np.ceil(np.log2(max(longest, 1) + 1))))
+        if longest > max_jobs:
+            raise ValueError(f"longest trace has {longest} jobs > {max_jobs}")
+
+        shape = (S, max_jobs)
+        out = ScenarioSet(
+            submit_t=np.zeros(shape, dtype=np.float32),
+            nodes=np.zeros(shape, dtype=np.int32),
+            est_runtime=np.zeros(shape, dtype=np.float32),
+            true_runtime=np.zeros(shape, dtype=np.float32),
+            valid=np.zeros(shape, dtype=bool),
+            n_jobs=np.asarray([len(t) for t in traces], dtype=np.int32),
+            total_nodes=np.asarray(totals, dtype=np.int32),
+        )
+        jobs = int(out.n_jobs.sum())
+        spans.count("stack.jobs", jobs)
+        native = _native_stack()
+        if native is not None and native(
+                traces, JobSpec, S, max_jobs, out.submit_t.ctypes.data,
+                out.nodes.ctypes.data, out.est_runtime.ctypes.data,
+                out.true_runtime.ctypes.data, out.valid.ctypes.data) == jobs:
+            spans.count("stack.native_jobs", jobs)
+        else:
+            spans.count("stack.native_jobs", 0)
+            _stack_rows(traces, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _native_stack():
+    """``stack_rows`` of the native pass, or None where this host cannot
+    build it (no C compiler or no ``Python.h``)."""
+    from repro_torch.kernels import build
+    try:
+        fn = build.load_host("stack_scenarios").stack_rows
+    except (RuntimeError, OSError):
+        return None
+    fn.argtypes = (ctypes.py_object, ctypes.py_object, ctypes.c_ssize_t,
+                   ctypes.c_ssize_t, *(ctypes.c_void_p,) * 5)
+    fn.restype = ctypes.c_ssize_t
+    return fn
+
+
+def _stack_rows(traces: Sequence[Sequence[JobSpec]],
+                out: ScenarioSet) -> None:
+    """The plain loop: checks each trace and writes its rows of ``out``."""
     for s, trace in enumerate(traces):
         ids = [j.job_id for j in trace]
         if ids != list(range(len(trace))):
@@ -297,7 +342,6 @@ def stack_scenarios(traces: Sequence[Sequence[JobSpec]],
         out.est_runtime[s, :n] = [j.est_runtime for j in trace]
         out.true_runtime[s, :n] = [j.true_runtime for j in trace]
         out.valid[s, :n] = True
-    return out
 
 
 def make_scenario(trace: Sequence[JobSpec], total_nodes: int,

@@ -7,17 +7,25 @@ land in ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash
 of the source and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing here runs when the module is imported.
+
+``HOST_SOURCES`` are host C code on the CPython API (no CUDA): built the
+same way with the host C compiler and the include directory that
+``sysconfig`` names, on any host, and loaded with ``ctypes.PyDLL`` so
+that a call holds the GIL.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
+import sysconfig
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -30,6 +38,10 @@ SOURCES: Dict[str, Path] = {
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_SOURCES: Dict[str, Path] = {
+    "stack_scenarios": _PKG / "csrc" / "stack_scenarios.c",
+}
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -54,10 +66,14 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def _hashed_path(name: str, source: Path, flags) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
     return build_dir() / f"{name}-{digest[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    return _hashed_path(name, SOURCES[name], NVCC_FLAGS)
 
 
 def build(names: Optional[Iterable[str]] = None,
@@ -109,5 +125,42 @@ def load(name: str) -> ctypes.CDLL:
             f"kernel {name!r} needs a CUDA device and torch sees none")
     build([name])
     lib = ctypes.CDLL(str(library_path(name)))
+    _LOADED[name] = lib
+    return lib
+
+
+def host_toolchain() -> Tuple[List[str], str]:
+    """The host C compiler (``sysconfig``'s ``CC``, as words) and the
+    directory holding ``Python.h``; raises where either is missing."""
+    cc = shlex.split(sysconfig.get_config_var("CC") or "cc")
+    if shutil.which(cc[0]) is None:
+        raise RuntimeError(f"no host C compiler: {cc[0]!r} is not on PATH")
+    include = sysconfig.get_paths()["include"]
+    if not (Path(include) / "Python.h").exists():
+        raise RuntimeError(f"no Python.h in {include}")
+    return cc, include
+
+
+def load_host(name: str) -> ctypes.PyDLL:
+    """The loaded host library for ``name``, built first if needed.  A
+    build writes a file of its own process and thread and renames it into
+    place, so concurrent builds of one source are safe."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    cc, include = host_toolchain()
+    cmd = [*cc, *HOST_FLAGS, f"-I{include}"]
+    out = _hashed_path(name, HOST_SOURCES[name], cmd)
+    if not out.exists():
+        build_dir().mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run([*cmd, "-o", str(tmp), str(HOST_SOURCES[name])],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{name}: {cc[0]} exited {proc.returncode}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.PyDLL(str(out))
     _LOADED[name] = lib
     return lib

@@ -21,6 +21,7 @@ import dataclasses
 import functools
 import io
 import sys
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +37,7 @@ from repro.launch import twin_loop as jloop
 from repro_torch.cluster import workload as twl
 from repro_torch.cluster.emulator import ClusterEmulator, FailureSpec
 from repro_torch.configs.schedtwin import ReplayGridConfig as TGridConfig
-from repro_torch.core import des
+from repro_torch.core import des, telemetry
 from repro_torch.core.engine import DrainEngine as TEngine
 from repro_torch.core.engine import tile_pool
 from repro_torch.core.events import EventBus
@@ -324,6 +325,167 @@ def test_stack_scenarios_validates_and_replay_takes_one_scenario():
         TREF.replay(scen, T_IDS)
     with pytest.raises(ValueError, match="multiple"):
         twl.pad_scenarios(scen, 0)
+
+
+# ----------------------------------------------------------------------
+# The native stacking pass against the plain loop.
+# ----------------------------------------------------------------------
+
+SCENARIO_FIELDS = [f.name for f in dataclasses.fields(twl.ScenarioSet)]
+
+
+@pytest.fixture
+def native_stack():
+    """The native pass, built here; skips where the host has no C compiler
+    or no ``Python.h``."""
+    from repro_torch.kernels import build
+    try:
+        build.host_toolchain()
+    except RuntimeError as e:
+        pytest.skip(f"native stacking pass not buildable: {e}")
+    fn = twl._native_stack()
+    assert fn is not None, "the toolchain is there but the pass did not load"
+    return fn
+
+
+def _stacked(plain, *args, **kwargs):
+    """``(tables, stack counters)`` or ``(error, counters)`` of one
+    ``stack_scenarios`` call, through the plain loop alone if ``plain``."""
+    real = twl._native_stack
+    if plain:
+        twl._native_stack = lambda: None
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got = twl.stack_scenarios(*args, **kwargs)
+    except Exception as e:                       # noqa: BLE001
+        got = e
+    finally:
+        twl._native_stack = real
+    tree = telemetry.SPANS.roots[-1]
+    assert tree.root.name == "stack"
+    return got, tree.counts()
+
+
+def assert_same_stack(a, b):
+    if isinstance(a, Exception) or isinstance(b, Exception):
+        assert (type(a), str(a)) == (type(b), str(b))
+        return
+    for name in SCENARIO_FIELDS:
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x.dtype, x.shape) == (y.dtype, y.shape), name
+        assert x.tobytes() == y.tobytes(), name
+
+
+def _ragged(seed, n_traces, longest):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_traces):
+        n = int(rng.integers(0, longest + 1))
+        sub = np.cumsum(rng.exponential(7.3, n)).tolist()
+        est = rng.uniform(1.0, 900.0, n).tolist()
+        out.append([twl.JobSpec(j, sub[j], int(rng.integers(1, 33)), est[j],
+                                est[j] * float(rng.uniform(0.1, 1.0)), "r")
+                    for j in range(n)])
+    out[0] = out[0] or [twl.JobSpec(0, 0.5, 3, 10.0, 9.0)]
+    return out
+
+
+def _odd_times():
+    nan, inf = float("nan"), float("inf")
+    t = [(0.0, 5.0, 4.0), (nan, nan, 1.0), (-5.0, inf, -inf),
+         (2.5, -0.0, nan), (inf, 3.0, inf), (inf, 1e-45, 2e-38)]
+    return [[twl.JobSpec(j, sub, 2, est, tru)
+             for j, (sub, est, tru) in enumerate(t)]]
+
+
+NATIVE_CASES = {
+    "ragged": lambda: ((_ragged(1, 24, 70), 32), {}),
+    "one_trace": lambda: ((_ragged(2, 1, 150), 32), {}),
+    "max_jobs": lambda: ((_ragged(3, 5, 40), 16), {"max_jobs": 200}),
+    "per_scenario_nodes": lambda: ((_ragged(4, 3, 30), [16, 32, 560]), {}),
+    "nan_inf_times": lambda: ((_odd_times(), 8), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(NATIVE_CASES))
+def test_native_stack_equals_the_plain_loop(native_stack, case):
+    """The native pass writes every job, and its seven tables equal the
+    plain loop's bit for bit."""
+    args, kwargs = NATIVE_CASES[case]()
+    plain, plain_counts = _stacked(True, *args, **kwargs)
+    native, counts = _stacked(False, *args, **kwargs)
+    assert not isinstance(plain, Exception), plain
+    jobs = sum(len(t) for t in args[0])
+    assert plain_counts == {"stack.jobs": jobs, "stack.native_jobs": 0}
+    assert counts == {"stack.jobs": jobs, "stack.native_jobs": jobs}
+    assert_same_stack(native, plain)
+
+
+def _with(trace, j, **change):
+    return trace[:j] + [dataclasses.replace(trace[j], **change)] + trace[j + 1:]
+
+
+class _SubSpec(twl.JobSpec):
+    pass
+
+
+FALLBACK_CASES = {
+    "numpy_scalars": lambda t: [_with(t, 3, submit_t=np.float64(t[3].submit_t),
+                                      nodes=np.int64(5))],
+    "int_submit_t": lambda t: [_with(t, 0, submit_t=0)],
+    "tuple_of_traces": lambda t: (t, t),
+    "tuple_trace": lambda t: [t, tuple(t)],
+    "jobspec_subclass": lambda t: [t[:2] + [_SubSpec(**dataclasses.asdict(
+        t[2]))] + t[3:]],
+    "nodes_past_int32": lambda t: [_with(t, 4, nodes=2 ** 31)],
+    "time_past_float32": lambda t: [_with(t, 2, est_runtime=1e39)],
+    "bool_ids": lambda t: [[dataclasses.replace(t[0], job_id=False),
+                            dataclasses.replace(t[1], job_id=True)]],
+}
+
+
+@pytest.mark.parametrize("case", list(FALLBACK_CASES))
+def test_other_inputs_take_the_plain_loop(case):
+    """Inputs the native pass cannot vouch for go whole to the plain loop
+    and give its tables or its error."""
+    traces = FALLBACK_CASES[case](_ragged(5, 1, 0)[0] + [
+        twl.JobSpec(j, 1.0 * j, 3, 50.0, 40.0) for j in range(1, 8)])
+    plain, _ = _stacked(True, traces, 16)
+    got, counts = _stacked(False, traces, 16)
+    assert counts == {"stack.jobs": sum(len(t) for t in traces),
+                      "stack.native_jobs": 0}
+    assert_same_stack(got, plain)
+
+
+J_ = twl.JobSpec
+ERROR_CASES = {
+    "submission order": ([[J_(0, 10.0, 1, 30.0, 20.0), J_(1, 5.0, 1, 30.0,
+                                                           20.0)]], 16),
+    "job_id": ([[J_(0, 0.0, 1, 30.0, 20.0)],
+                [J_(1, 0.0, 1, 30.0, 20.0), J_(0, 0.0, 1, 30.0, 20.0)]], 16),
+    "total_nodes": ([[J_(0, 0.0, 1, 30.0, 20.0)]], [16, 32]),
+}
+
+
+@pytest.mark.parametrize("case", list(ERROR_CASES))
+def test_native_stack_raises_the_plain_errors(native_stack, case):
+    """With the native pass engaged, the plain path's ``ValueError``s
+    come out as they were, trace index and all."""
+    plain, _ = _stacked(True, *ERROR_CASES[case])
+    got, _ = _stacked(False, *ERROR_CASES[case])
+    assert isinstance(got, ValueError) and case in str(got)
+    assert_same_stack(got, plain)
+
+
+def test_native_stack_takes_a_farm_shaped_input(native_stack):
+    """Traces drawn as the benchmark's farm draws them (the paper's
+    workload, times as floats, nodes as ints) all go through the native
+    pass."""
+    traces = [twl.paper_synthetic_trace(seed=s) for s in range(64)]
+    got, counts = _stacked(False, traces, twl.PAPER_TOTAL_NODES)
+    assert counts["stack.jobs"] == counts["stack.native_jobs"] == 64 * 150
+    assert_same_stack(got, _stacked(True, traces, twl.PAPER_TOTAL_NODES)[0])
 
 
 # ----------------------------------------------------------------------
