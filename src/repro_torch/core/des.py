@@ -19,10 +19,11 @@
 
 The reference loops on the device (``lax.while_loop``).  Here both loops
 are Python loops.  The drain's condition costs one device-to-host read
-per iteration (``bool(active.any())``).  The replay runs blocks of
-``REPLAY_BLOCK`` iterations and reads its condition once per block: its
-body carries the condition as a device flag and changes nothing once the
-flag is down, so no iteration inside a block waits for the host.
+per iteration (``bool(active.any())``), recorded as a ``drain.read``
+span.  The replay runs blocks of ``REPLAY_BLOCK`` iterations and reads
+its condition once per block: its body carries the condition as a device
+flag and changes nothing once the flag is down, so no iteration inside a
+block waits for the host.
 """
 from __future__ import annotations
 
@@ -147,7 +148,12 @@ def simulate_to_drain_batched(states: SimState,
     lock-step.  ``order_fn`` maps the batched state to the (k, J)
     priority order; ``pass_fn`` runs the greedy/backfill pass up to the
     rank limit.  A fork that drains or deadlocks freezes while the rest
-    keep stepping, so the result is the stack of k scalar drains."""
+    keep stepping, so the result is the stack of k scalar drains.
+
+    It records a ``drain`` span (``core.telemetry``; a root of its own
+    outside a decision) holding one ``drain.read`` span around each
+    iteration's read of the loop condition (the host's wait for the
+    card), and counts ``drain.steps``, the iterations dispatched."""
     k, J = states.jobs.state.shape
     dev = states.now.device
     max_iters = J + 1
@@ -156,19 +162,25 @@ def simulate_to_drain_batched(states: SimState,
     dead = torch.zeros((k,), dtype=torch.bool, device=dev)
     iters = torch.zeros((k,), dtype=torch.int32, device=dev)
     it = 0
-    while it < max_iters:
-        active = ~dead & (st.jobs.state == QUEUED).any(1)
-        if not bool(active.any()):      # the loop's one host read
-            break
-        order = order_fn(st)
-        limit = pass_rank_limit(st, active) if dynamic_bounds else None
-        started = pass_fn(st, order, limit) & active[:, None]
-        st = apply_starts(st, started)
-        if it == 0:
-            first = started
-        st, dead = _advance(st, active, dead)
-        iters = iters + active.to(torch.int32)
-        it += 1
+    spans = telemetry.SPANS
+    with spans.span("drain"):
+        while it < max_iters:
+            active = ~dead & (st.jobs.state == QUEUED).any(1)
+            flag = active.any()
+            with spans.span("drain.read"):
+                more = bool(flag)           # the loop's one host read
+            if not more:
+                break
+            order = order_fn(st)
+            limit = pass_rank_limit(st, active) if dynamic_bounds else None
+            started = pass_fn(st, order, limit) & active[:, None]
+            st = apply_starts(st, started)
+            if it == 0:
+                first = started
+            st, dead = _advance(st, active, dead)
+            iters = iters + active.to(torch.int32)
+            it += 1
+        spans.count("drain.steps", it)
     return DrainResult(state=st, first_started=first, iters=iters,
                        deadlocked=dead,
                        pass_invocations=torch.full((k,), it,

@@ -1,5 +1,6 @@
 """Twin telemetry: per-cycle latency, decisions, policy mix (Table 1),
-and the spans and counters the replay records (``SpanRecorder``)."""
+and the spans and counters the replay, the drain and the decision cycle
+record (``SpanRecorder``)."""
 from __future__ import annotations
 
 import collections
@@ -247,7 +248,7 @@ class StopWatch:
 
 
 # ----------------------------------------------------------------------
-# Spans and counters: what the replay records of its own work.
+# Spans and counters: what the replay and the drain record of their work.
 # ----------------------------------------------------------------------
 
 def profiling() -> bool:
@@ -391,5 +392,6 @@ class SpanRecorder:
         return _host_range(name)
 
 
-#: The process's recorder: the replay path records into it.
+#: The process's recorder: the replay, the drain and the twin's decision
+#: cycle record into it.
 SPANS = SpanRecorder()

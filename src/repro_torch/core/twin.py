@@ -307,7 +307,10 @@ class SchedTwin:
                 self.state, self.free_nodes_probe())
 
         level = self.guard.plan() if self.guard is not None else 0
-        with telemetry.StopWatch(self._clock) as sw:
+        # the ``decision`` span (a root in ``telemetry.SPANS``) holds the
+        # interval ``CycleRecord.wall_seconds`` times and the drain's spans
+        with telemetry.SPANS.span("decision"), \
+                telemetry.StopWatch(self._clock) as sw:
             decision, race_out, names, source = self._decide_at_level(
                 level)
             run_mask = _host(decision.run_mask)  # waits for the device

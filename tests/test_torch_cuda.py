@@ -69,7 +69,8 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   device.
 * The replay under a CUDA ``torch.profiler``: its spans and phases
   (``core.telemetry``) are host ranges, on no device event, and the
-  grid is bitwise an unprofiled one's.
+  grid is bitwise an unprofiled one's; so are a fan decision's
+  ``decision``, ``drain`` and ``drain.read``, and its outcome.
 * K1 at the Monte-Carlo paths' fork counts, k = 2048 (a 64-member fan
   of the k=32 pool) and 16,384 (S·F·P = 8 × 64 × 32), on tight random
   forks: bitwise its plain version, one launch each.
@@ -760,6 +761,49 @@ def test_replay_ranges_stay_on_the_host():
     for name in ("start_t", "end_t", "deadlocked", "events", "costs",
                  "best"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_decision_ranges_stay_on_the_host():
+    """The same for the twin's decision and its drain: ``decision``,
+    ``drain`` and ``drain.read`` are host ranges only, and a profiled
+    decision is the unprofiled one."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.events import Event, EventBus, EventKind
+    from repro_torch.core.twin import SchedTwin
+    trace = workload.poisson_trace(60, 32, 6.0, (1, 16), (30.0, 900.0),
+                                   seed=4)
+    engine = DrainEngine("cuda", device="cuda")
+
+    def decide():
+        twin = SchedTwin(bus=EventBus(), qrun=lambda jobs, t: None,
+                         total_nodes=32, max_jobs=64, pool="extended",
+                         engine=engine, device="cuda",
+                         objective="cvar:0.75:score",
+                         fan=FanSpec(n=8, runtime_noise=0.3,
+                                     failure_prob=0.2, seed=3))
+        for j in trace:
+            twin.bus.publish(Event(EventKind.QUEUEJOB, j.submit_t, j.job_id,
+                                   {"nodes": float(j.nodes),
+                                    "est_runtime": float(j.est_runtime)}))
+        twin.pump()
+        c = twin.telemetry.cycles[-1]
+        return c.policy, c.costs, c.started_jobs, c.cost_ci, c.fan_width
+
+    want = decide()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = decide()
+        torch.cuda.synchronize()
+    ranges = {"decision", "drain", "drain.read"}
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = {e.name for e in prof.events() if e.device_type == cuda}
+    host = {e.name for e in prof.events() if e.device_type != cuda}
+    assert ranges <= host and not ranges & dev
+    assert any("pass_kernel" in n for n in dev)
+    assert got == want
 
 
 @pytest.mark.cuda

@@ -9,8 +9,14 @@ and what the replay records into it, on the CPU at smoke sizes.
 * the profiler: no range is entered while none records; under a CPU
   ``torch.profiler`` the span and phase names are among the host
   events, and the grid's outputs are bitwise those of an unprofiled run;
+* a twin's decision cycles under a fan: one ``decision`` root a cycle
+  over a ``drain`` with one ``drain.read`` an iteration, ``drain.steps``
+  against the drain's ``pass_invocations``, a drain outside a decision
+  as a root of its own, and the decisions bitwise the same without the
+  recorder and under a profiler;
 * ``Telemetry.cycle_latency_stats``: a true median and a p95 (C18).
 """
+import contextlib
 import threading
 
 import pytest
@@ -27,6 +33,7 @@ from repro_torch.core.telemetry import (CycleRecord, SpanRecorder,
 from torch_threads import one_thread  # noqa: F401
 
 SPAN_NAMES = {"grid", "replay", "replay.read"}
+DRAIN_NAMES = {"decision", "drain", "drain.read"}
 PHASE_NAMES = {"replay.event", "replay.apply", "replay.order",
                "replay.pass", "replay.starts"}
 
@@ -220,6 +227,109 @@ def test_span_opened_before_the_profiler_shows_from_its_start(rec):
     assert {"grid", "replay", "replay.event"} <= set(got)
     assert "replay.pass" not in got
     assert list(rec.roots)[0].root.name == "grid"
+
+
+class NoRecorder:
+    """A recorder that records nothing: the program without its spans."""
+
+    def span(self, name):
+        return contextlib.nullcontext()
+
+    def count(self, name, value):
+        pass
+
+    def phase(self, name):
+        return contextlib.nullcontext()
+
+
+def _cosim(drains=None):
+    """A fan twin (4 futures, the paper's pool, CVaR) co-simulated with
+    the emulator on the CPU; ``drains`` collects each decision drain's
+    ``DrainResult``."""
+    from repro_torch.cluster.emulator import ClusterEmulator
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.events import EventBus
+    from repro_torch.core.fan import FanSpec
+    from repro_torch.core.twin import SchedTwin
+    trace = poisson_trace(16, 16, 20.0, (1, 6), (60.0, 900.0), seed=2)
+    engine = DrainEngine(device="cpu")
+    bus = EventBus()
+    em = ClusterEmulator(trace, 16, bus=bus, engine=engine)
+    twin = SchedTwin(bus=bus, qrun=em.qrun, total_nodes=16,
+                     max_jobs=em.max_jobs, engine=engine, device="cpu",
+                     fan=FanSpec(n=4, runtime_noise=0.3, failure_prob=0.5,
+                                 seed=9), objective="cvar:0.5:score",
+                     free_nodes_probe=lambda: em.free_nodes)
+    drain = engine_mod.simulate_to_drain_batched
+
+    def recorded(*a, **kw):
+        res = drain(*a, **kw)
+        if drains is not None:
+            drains.append(res)
+        return res
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine_mod, "simulate_to_drain_batched", recorded)
+        report = em.run(on_event=twin.pump)
+    return twin, report
+
+
+def _decisions(twin):
+    return [(c.time, c.policy, c.started_jobs, c.costs, c.cost_ci,
+             c.fan_width, c.term_costs) for c in twin.telemetry.cycles]
+
+
+def test_decision_and_drain_spans(rec):
+    drains = []
+    twin, _ = _cosim(drains)
+    cycles = twin.telemetry.cycles
+    trees = [t for t in list(rec.roots) if t.root.name == "decision"]
+    assert len(trees) == len(cycles) == len(drains) > 2
+    for tree, cyc, res in zip(trees, cycles, drains):
+        assert {s.name for s in tree.spans} == DRAIN_NAMES
+        (drain,) = tree.named("drain")
+        assert tree.children(tree.root) == [drain]
+        reads = tree.children(drain)
+        assert reads == tree.named("drain.read")
+        steps = tree.counts()["drain.steps"]
+        assert steps == int(res.pass_invocations[0])
+        assert len(reads) == steps + 1       # and the read that ends it
+        assert tree.self_ns(drain) + sum(r.ns for r in reads) == drain.ns
+        assert tree.root.ns >= 1e9 * cyc.wall_seconds - 1e3
+    assert sum(t.counts()["drain.steps"] > 0 for t in trees) > 2
+    # the emulator's own drains are roots of their own
+    assert all(t.root.name in ("decision", "drain", "stack", "grid",
+                               "replay") for t in list(rec.roots))
+
+
+def test_drain_outside_a_decision_is_a_root(rec):
+    from repro_torch.core import sync
+    from repro_torch.core.events import Event, EventKind
+    from repro_torch.core.state import empty_state
+    st = empty_state(16, 16, device="cpu")
+    for j in range(6):
+        st, _ = sync.apply_event(st, Event(
+            EventKind.QUEUEJOB, float(j), j,
+            {"nodes": float(4 + j), "est_runtime": 100.0 * (j + 1)}))
+    res = DrainEngine(device="cpu").drain(st, normalize_pool("paper").spec)
+    (tree,) = list(rec.roots)
+    assert tree.root.name == "drain" and tree.root.parent is None
+    steps = int(res.pass_invocations[0])
+    assert tree.counts() == {"drain.steps": steps} and steps > 1
+    assert len(tree.named("drain.read")) == steps + 1
+
+
+@pytest.mark.parametrize("how", ["no recorder", "profiler"])
+def test_decisions_unchanged_by_the_recorder(rec, monkeypatch, how):
+    plain, plain_report = _cosim()
+    if how == "no recorder":
+        monkeypatch.setattr(telemetry, "SPANS", NoRecorder())
+        other, other_report = _cosim()
+    else:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            other, other_report = _cosim()
+        assert DRAIN_NAMES <= {e.name for e in prof.events()}
+    assert _decisions(other) == _decisions(plain)
+    assert other_report.metric_dict() == plain_report.metric_dict()
 
 
 def _cycles(walls):
