@@ -16,7 +16,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      the drain's first pass and its mean over the captured drain passes,
      beside the plain version's and the bound, and per fork of those
      passes R (running and just-started jobs) and n_cand (the ranks the
-     backfill walk decides);
+     backfill walk decides); then the order kernel against the plain
+     order stage, bitwise, on every 25th step of a Polaris fan drain
+     (8,192 forks, J = 1,024) and on a farm-shaped batch (49,152 forks,
+     J = 256), and both timed there beside the byte bound;
   3. the paper's §4.1 co-simulation (``--trace paper``: 150 jobs, 32
      nodes, paper pool, ``score``) through ``twin_loop`` on ``cuda`` and
      on ``cpu``: same metric table, policy mix and per-cycle starts;
@@ -223,6 +226,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      configuration on meta against phase 17's measured peak above its
      state and a counted step on the card (equal FLOPs, no kernel).
 
+On every path of phases 3-15 the order kernel's launch count is set to
+0 with K1's and read beside it: equal to K1's on every ``cuda`` drain
+and replay (one launch each a step), 0 under the scalar drain of
+``decide_legacy_vmap``; those counts are its row's ``launches_by_path``.
+
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
@@ -276,6 +284,12 @@ from repro_torch.launch.cost import PEAK_FLOPS_BF16 as BF16_PEAK  # noqa: E402
 K1 = dict(name="policy_eval_pass_batched", route="cuda",
           source="src/repro_torch/csrc/policy_eval.cu",
           replaces="src/repro/kernels/policy_eval.py:65")
+ORDER = dict(name="priority_order", route="cuda",
+             source="src/repro_torch/csrc/priority_order.cu",
+             replaces=None)
+#: The order kernel's launches by path, counted beside K1's: every
+#: ``cuda`` drain and replay launches both once a step (``k1_launches``).
+ORDER_LAUNCHES = {}
 K1S = dict(name="policy_eval_pass", route="cuda",
            source="src/repro_torch/csrc/policy_eval.cu",
            replaces="src/repro/kernels/policy_eval.py:176")
@@ -286,6 +300,28 @@ K3 = dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
 K4 = dict(name="flash_attention", route="cuda",
           source="src/repro_torch/csrc/flash_attention.cu",
           replaces="src/repro/kernels/flash_attention.py:37")
+
+
+def reset_launches(pe):
+    """Zero K1's launch count and the order kernel's."""
+    from repro_torch.kernels import priority_order as po
+    pe.LAUNCHES = po.LAUNCHES = 0
+
+
+def k1_launches(pe, path=None, order=True):
+    """K1's launches since ``reset_launches``.  The order kernel's must
+    equal them (every ``cuda`` drain and replay launches both once a
+    step), or be 0 where ``order`` is false (the scalar drain keeps the
+    plain order); they are added to ``ORDER_LAUNCHES[path]``."""
+    from repro_torch.kernels import priority_order as po
+    want = pe.LAUNCHES if order else 0
+    if po.LAUNCHES != want:
+        raise SystemExit(f"[order] {path or 'a checked path'}: "
+                         f"{po.LAUNCHES} order-kernel launches, {want} "
+                         f"expected ({pe.LAUNCHES} K1 launches)")
+    if path is not None:
+        ORDER_LAUNCHES[path] = ORDER_LAUNCHES.get(path, 0) + po.LAUNCHES
+    return pe.LAUNCHES
 
 
 def card_line() -> str:
@@ -536,6 +572,107 @@ def kernel_vs_plain(torch, engine, snapshot):
                 drain_mean_ms=drain_ms), drain_inputs
 
 
+def order_vs_plain(torch, snapshot, every=25):
+    """The order kernel against the plain order stage on the card: every
+    ``every``-th step of a real Polaris fan drain (the k=32 sweep x 256
+    futures = 8,192 forks, J = 1,024, noise and failures as the Polaris
+    cell's) and a farm-shaped batch (the paper's pool x 16,384 random
+    scenarios, s·P + p, J = 256), bitwise; then both timed (CUDA events)
+    on the drain's first, middle and last captured steps and on the farm
+    batch, beside the bound (16 B a slot of a re-sorted fork, 8 B of a
+    hoisted one, 4 B written)."""
+    from repro_torch.core.engine import (DrainEngine, KernelOrder,
+                                         make_order_fn, tile_pool)
+    from repro_torch.core.fan import FanSpec
+    from repro_torch.core.policies import parse_pool
+    from repro_torch.core.state import QUEUED
+    from repro_torch.kernels import priority_order as po
+
+    captured, step = [], [0]
+
+    class Checked(DrainEngine):
+        def order_fn(self, states0, pool, plan, ever_queued, counter):
+            kernel = KernelOrder(states0, pool, plan, ever_queued, counter)
+            plain = make_order_fn(states0, pool, plan, ever_queued)
+
+            def fn(st):
+                got = kernel(st)
+                if step[0] % every == 0:
+                    if not torch.equal(got, plain(st)):
+                        raise SystemExit(f"[order] MISMATCH at drain step "
+                                         f"{step[0]}")
+                    captured.append((kernel, plain, st))
+                step[0] += 1
+                return got
+            return fn
+
+    fan = FanSpec(n=256, runtime_noise=0.3, failure_prob=0.1,
+                  failure_frac=0.1, seed=3)
+    launches = po.LAUNCHES
+    Checked(backend="cuda", device="cuda").decide_fan(
+        snapshot, parse_pool(DRAS_POOL).spec, fan, "cvar:0.9:score")
+    torch.cuda.synchronize()
+    if po.LAUNCHES - launches != step[0]:
+        raise SystemExit("[order] not one launch a drain step")
+    print(f"[order] Polaris fan drain: {step[0]} steps at k=8,192 "
+          f"J={POLARIS_SLOTS}; kernel bitwise the plain stage on "
+          f"{len(captured)} of them (every {every}th)")
+
+    def bytes_of(kernel, st):
+        k, J = st.jobs.state.shape
+        hoisted = int((kernel.hoist_row >= 0).sum())
+        return (k - hoisted) * J * 16 + hoisted * J * 8 + k * J * 4
+
+    rows = {}
+    picks = (("first", captured[0]), ("middle", captured[len(captured) // 2]),
+             ("last", captured[-1]))
+    farm_pool = tile_pool(parse_pool("paper").spec, 16384).to("cuda")
+    farm = synthetic_order_state(torch, 49152, 256, seed=5)
+    ever = farm.jobs.state == QUEUED
+    plan = DrainEngine("cuda", device="cuda").plan(farm_pool)
+    farm_kernel = KernelOrder(farm, farm_pool, plan, ever, "order.kernel")
+    farm_plain = make_order_fn(farm, farm_pool, plan, ever)
+    if not torch.equal(farm_kernel(farm), farm_plain(farm)):
+        raise SystemExit("[order] MISMATCH on the farm-shaped batch")
+    for name, (kernel, plain, st) in picks + (
+            ("farm", (farm_kernel, farm_plain, farm)),):
+        ms = time_ms(torch, lambda: kernel(st), 50)
+        plain_ms = time_ms(torch, lambda: plain(st), 10)
+        ms2 = time_ms(torch, lambda: kernel(st), 50)
+        b_ms, _ = bound(bytes_of(kernel, st), 0, OP_RATE)
+        queued = float((st.jobs.state == QUEUED).sum(1).float().mean())
+        rows[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=b_ms,
+                          queued=queued)
+        print(f"[order] {name} ({queued:.0f} queued a fork): kernel "
+              f"{ms * 1e3:.1f} / {ms2 * 1e3:.1f} us per call, plain stage "
+              f"{plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us (bytes; "
+              f"kernel at {100 * b_ms / min(ms, ms2):.1f}% of it)")
+    first = rows["first"]
+    return dict(max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by="bytes", by_step=rows,
+                checked_drain_steps=step[0])
+
+
+def synthetic_order_state(torch, k, J, seed):
+    """A (k, J) job table on the card with ~10% of the slots queued."""
+    import numpy as np
+    from repro_torch.core.state import JobTable, SimState
+    rng = np.random.default_rng(seed)
+    state = rng.choice(4, size=(k, J), p=[0.5, 0.1, 0.1, 0.3]).astype(
+        np.int32)
+    now = rng.uniform(0.0, 5e4, size=k).astype(np.float32)
+    submit = (now[:, None] - rng.uniform(0.0, 2e4, size=(k, J))).astype(
+        np.float32)
+    est = rng.uniform(300.0, 86400.0, size=(k, J)).astype(np.float32)
+    nodes = rng.integers(1, 32, size=(k, J)).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to("cuda")               # noqa: E731
+    jobs = JobTable(submit_t=t(submit), nodes=t(nodes), est_runtime=t(est),
+                    start_t=t(submit), end_t=t(submit), state=t(state))
+    free = torch.full((k,), 32, dtype=torch.int32, device="cuda")
+    return SimState(jobs=jobs, free_nodes=free, total_nodes=free.clone(),
+                    now=t(now))
+
+
 def drain_launches(torch, pe, inputs, fn=None):
     """One launch of K1 (or ``fn``, a library's C entry of the same
     signature) on each of ``inputs`` in turn."""
@@ -646,9 +783,9 @@ def paper_cosim(device):
 
 
 def check_cosim(pe):
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     cuda = paper_cosim("cuda")
-    launches = pe.LAUNCHES
+    launches = k1_launches(pe)
     cpu = paper_cosim("cpu")
     print(f"[cosim] metrics cuda {cuda[0]}")
     if cuda[0] != cpu[0] or cuda[1] != cpu[1] or cuda[2] != cpu[2]:
@@ -656,20 +793,21 @@ def check_cosim(pe):
     if launches == 0:
         raise SystemExit("[cosim] the cuda run never launched K1")
     print(f"[cosim] cuda == cpu: metric table, policy mix and all "
-          f"{len(cuda[2])} per-cycle start sets identical; K1 launches "
-          f"on cuda: {launches}")
+          f"{len(cuda[2])} per-cycle start sets identical; K1 and order "
+          f"kernel launches on cuda: {launches} each")
 
 
 # ---------------------------------------------------------------- phase 4
 def polaris_cycles(torch, engine, pe, tag="[polaris]", after_cycle=None,
-                   **twin_kw):
+                   path=None, **twin_kw):
     """Five decision cycles through the normal entry point: events on the
     bus, ``SchedTwin.pump()`` (a twin built with ``twin_kw``, e.g.
     ``ensemble=8``).  The qrun callback stands in for the scheduler: it
     publishes RUNJOB for every started job.  ``after_cycle(cycle, twin,
     make)``, if given, may return the twin to go on with (``make()``
-    builds a fresh one on the same bus).  Returns K1's launches, the
-    mirrors, the cycle walls and the last twin."""
+    builds a fresh one on the same bus).  Returns K1's launches (the
+    order kernel's, equal, go to ``ORDER_LAUNCHES[path]``), the mirrors,
+    the cycle walls and the last twin."""
     from repro_torch.core.events import Event, EventKind
     pending = []
 
@@ -687,7 +825,7 @@ def polaris_cycles(torch, engine, pe, tag="[polaris]", after_cycle=None,
     for ev in events:
         bus.publish(ev)
     rows, mirrors = [], []
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     for cycle in range(POLARIS_CYCLES):
         if cycle:
             for ev in pending:
@@ -721,7 +859,7 @@ def polaris_cycles(torch, engine, pe, tag="[polaris]", after_cycle=None,
             raise SystemExit(f"{tag} cycle {cycle}: non-finite costs")
         if after_cycle is not None:
             twin = after_cycle(cycle, twin, make)
-    launches = pe.LAUNCHES
+    launches = k1_launches(pe, path)
     if launches == 0:
         raise SystemExit(f"{tag} the main path never launched K1")
     forks = ("k=32" if twin_kw.get("ensemble", 1) <= 1 else
@@ -1527,8 +1665,7 @@ def replay_phase(torch, pe, snapshot):
     import numpy as np
     from repro_torch.cluster.emulator import ClusterEmulator
     from repro_torch.core import des
-    from repro_torch.core.engine import (DrainEngine, make_order_fn,
-                                         replay_inputs)
+    from repro_torch.core.engine import DrainEngine, replay_inputs
     from repro_torch.core.policies import parse_pool
     from repro_torch.core.state import QUEUED, map_state
     t_phase = time.perf_counter()
@@ -1548,18 +1685,18 @@ def replay_phase(torch, pe, snapshot):
         out = engine.replay_grid(scen, pool.spec, "score")
         out.end_t.cpu()
         return out
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     got = run(cuda)
     cold = time.perf_counter() - t0
-    launches = pe.LAUNCHES
+    launches = k1_launches(pe, "polaris_replay_grid")
     if launches == 0:
         raise SystemExit("[replay] the cuda grid never launched K1")
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     want = run(ref)
     ref_s = time.perf_counter() - t0
-    if pe.LAUNCHES:
+    if k1_launches(pe):
         raise SystemExit(f"[replay] the reference backend launched K1 "
                          f"{pe.LAUNCHES} times")
     for name in ("start_t", "end_t", "deadlocked", "events", "costs",
@@ -1590,8 +1727,8 @@ def replay_phase(torch, pe, snapshot):
     # block's end (for C3)
     states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool.spec,
                                                           "cuda")
-    order_fn = make_order_fn(states, pool_t, cuda.plan(pool.spec) * S,
-                             torch.isfinite(arrival_t))
+    order_fn = cuda.order_fn(states, pool_t, cuda.plan(pool.spec) * S,
+                             torch.isfinite(arrival_t), "replay.order_kernel")
     N = des.REPLAY_BLOCK
     w_at = max(1, min(20, reads - 4))
     k1_pass, capture = cuda.pass_fn(), []
@@ -1845,21 +1982,21 @@ def fan_decide_phase(torch, pe, snapshot, card):
         d = engine.decide_fan(snapshot, pool, sp, FAN_GOAL)
         d.run_mask.cpu()
         return d
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     got, first = capture_pass(pe, lambda: decide(cuda))
     cold = time.perf_counter() - t0
-    launches = pe.LAUNCHES
+    launches = k1_launches(pe, "fan_decide")
     if launches == 0:
         raise SystemExit("[fan] decide_fan never launched K1")
     t0 = time.perf_counter()
     decide(cuda)
     warm = time.perf_counter() - t0
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     want = decide(ref)
     ref_s = time.perf_counter() - t0
-    if pe.LAUNCHES:
+    if k1_launches(pe):
         raise SystemExit("[fan] the reference backend launched K1")
     same_decision(torch, got, want, "decide_fan cuda vs reference")
     one = dataclasses.replace(spec, n=1)
@@ -1916,11 +2053,13 @@ def race_decide_phase(torch, pe, snapshot, card):
     counts = {}
     for name, fn in (("race", run_race), ("fan", run_fan), ("fan", run_fan),
                      ("race", run_race)):
-        pe.LAUNCHES = 0
+        reset_launches(pe)
         t0 = time.perf_counter()
         res = fn()
         walls[name].append(time.perf_counter() - t0)
-        counts.setdefault(name, (pe.LAUNCHES, res))
+        n = k1_launches(pe, None if name in counts else
+                        {"race": "race_decide", "fan": "fan64_decide"}[name])
+        counts.setdefault(name, (n, res))
     launches, (d, out) = counts["race"]
     fan_launches, full = counts["fan"]
     if launches == 0 or fan_launches == 0:
@@ -1955,7 +2094,7 @@ def fan_grid_phase(torch, pe, card):
     from repro_torch.core import des
     from repro_torch.core.engine import (DrainEngine,
                                          _assemble_replay_inputs,
-                                         _scenario_arrays, make_order_fn)
+                                         _scenario_arrays)
     from repro_torch.core.fan import FanSpec, materialize_fan, perturb_window
     from repro_torch.core.policies import parse_pool
     from repro_torch.core.race import RaceSpec, race_grid
@@ -1974,12 +2113,12 @@ def fan_grid_phase(torch, pe, card):
           f"{FAN_GRID_GOAL}, noise {spec.runtime_noise}, burst "
           f"{spec.burst_amplitude}, failures {spec.failure_prob} over "
           f"{spec.failure_domains} domains")
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     got = cuda.fan_grid(scen, pool.spec, spec, FAN_GRID_GOAL)
     got.end_t.cpu()
     wall = time.perf_counter() - t0
-    launches = pe.LAUNCHES
+    launches = k1_launches(pe, "fan_grid")
     if launches == 0:
         raise SystemExit("[fan-grid] fan_grid never launched K1")
     iters = int(got.result.iters)
@@ -2000,15 +2139,15 @@ def fan_grid_phase(torch, pe, card):
                                           "valid", "n_jobs",
                                           "total_nodes")})
     part = dataclasses.replace(spec, n=FAN_SLICE)
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     a = cuda.fan_grid(one, pool.spec, part, FAN_GRID_GOAL)
     a.end_t.cpu()
-    slice_launches = pe.LAUNCHES
+    slice_launches = k1_launches(pe)
     t0 = time.perf_counter()
     b = ref.fan_grid(one, pool.spec, part, FAN_GRID_GOAL)
     b.end_t.cpu()
     ref_s = time.perf_counter() - t0
-    if pe.LAUNCHES != slice_launches:
+    if k1_launches(pe) != slice_launches:
         raise SystemExit("[fan-grid] the reference backend launched K1")
     for name in ("start_t", "end_t", "deadlocked", "events",
                  "member_costs", "costs", "best", "cost_ci", "fan_width"):
@@ -2030,8 +2169,8 @@ def fan_grid_phase(torch, pe, card):
                           torch.arange(S * F, device="cuda"), 0, F, S)
     states, arrival_t, true_rt, pool_t, _ = _assemble_replay_inputs(
         *rows, pool.spec.to("cuda"), P)
-    order_fn = make_order_fn(states, pool_t, cuda.plan(pool.spec) * (S * F),
-                             torch.isfinite(arrival_t))
+    order_fn = cuda.order_fn(states, pool_t, cuda.plan(pool.spec) * (S * F),
+                             torch.isfinite(arrival_t), "replay.order_kernel")
     N = des.REPLAY_BLOCK
     step = des.make_replay_step(arrival_t, true_rt, order_fn,
                                 cuda.pass_fn())
@@ -2066,11 +2205,11 @@ def fan_grid_phase(torch, pe, card):
 
     # (f) the raced grid up to (e)'s fan: its winners are that fan's
     race = RaceSpec(fan=spec, f0=RACE_F0)
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     out = race_grid(scen, pool.spec, race, FAN_GRID_GOAL, engine=cuda)
     race_s = time.perf_counter() - t0
-    race_launches = pe.LAUNCHES
+    race_launches = k1_launches(pe, "race_grid")
     if race_launches == 0:
         raise SystemExit("[race-grid] race_grid never launched K1")
     best = got.best.cpu().numpy()
@@ -2120,13 +2259,14 @@ def monte_carlo_phase(torch, pe, snapshot, engine):
     race = race_decide_phase(torch, pe, snapshot, card)
     ens_launches, _, ens_walls, _ = polaris_cycles(torch, engine, pe,
                                                 tag="[ensemble]",
+                                                path="ensemble_cycles",
                                                 ensemble=ENSEMBLE)
     grid = fan_grid_phase(torch, pe, card)
     cli_launches = 0
     for flags in FAN_CLI:
-        pe.LAUNCHES = 0
+        reset_launches(pe)
         on_cuda = fan_cli("cuda", flags)
-        launches = pe.LAUNCHES
+        launches = k1_launches(pe, "fan_race_ensemble_cli")
         if launches == 0:
             raise SystemExit(f"[fan-cli] twin_loop {' '.join(flags)} never "
                              f"launched K1")
@@ -2223,14 +2363,15 @@ def grid_blocks_traced(torch, pe, engine, scen, pool_spec, tag, what,
     after them against its plain version (``k1_on``).  Returns the
     profile and K1's numbers."""
     from repro_torch.core import des
-    from repro_torch.core.engine import make_order_fn, replay_inputs
+    from repro_torch.core.engine import replay_inputs
     S = int(scen.total_nodes.shape[0])
     states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool_spec,
                                                           "cuda")
     plan = engine.plan(pool_spec)
-    order_fn = make_order_fn(states, pool_t,
-                             plan * S if plan is not None else None,
-                             torch.isfinite(arrival_t))
+    order_fn = engine.order_fn(states, pool_t,
+                               plan * S if plan is not None else None,
+                               torch.isfinite(arrival_t),
+                               "replay.order_kernel")
     step = des.make_replay_step(arrival_t, true_rt, order_fn,
                                 engine.pass_fn())
 
@@ -2284,10 +2425,10 @@ def training_phase(torch, pe, card):
           f"{', '.join(names)}) and {H} x {P0} held-out forks")
 
     one = slice_scenarios(train_scen, 0, 1)
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     got = cuda.replay_grid(one, gen0.spec, cfg.objective)
     got.costs.cpu()
-    one_launches = pe.LAUNCHES
+    one_launches = k1_launches(pe, "training_gen0_scenario0")
     t0 = time.perf_counter()
     want = ref.replay_grid(one, gen0.spec, cfg.objective)
     want.costs.cpu()
@@ -2333,7 +2474,7 @@ def training_phase(torch, pe, card):
         mark[0] = now
     full_dir = os.path.join(WORK, "train")
     shutil.rmtree(full_dir, ignore_errors=True)
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     DrainEngine.generation_costs = counted
     try:
         t0 = time.perf_counter()
@@ -2342,7 +2483,7 @@ def training_phase(torch, pe, card):
         wall = time.perf_counter() - t0
     finally:
         DrainEngine.generation_costs = real
-    launches = pe.LAUNCHES
+    launches = k1_launches(pe, "polaris_training")
     if launches == 0:
         raise SystemExit("[train] training never launched K1")
     if not math.isfinite(res.best_heldout):
@@ -2365,12 +2506,12 @@ def training_phase(torch, pe, card):
     part_dir = os.path.join(WORK, "train_resume")
     shutil.rmtree(part_dir, ignore_errors=True)
     shutil.copytree(step_dir(full_dir, 1), step_dir(part_dir, 1))
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     resumed = train(train_scen, heldout, cfg, engine=cuda,
                     checkpoint_dir=part_dir, resume=True)
     resume_s = time.perf_counter() - t0
-    resume_launches = pe.LAUNCHES
+    resume_launches = k1_launches(pe, "training_resume")
     if not (np.array_equal(resumed.theta, res.theta)
             and resumed.history == res.history
             and resumed.best_heldout == res.best_heldout):
@@ -2382,11 +2523,11 @@ def training_phase(torch, pe, card):
           f"in {resume_s:.2f} s, K1 launches {resume_launches}; θ, history "
           f"and best_heldout bitwise the uninterrupted run's")
 
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     deployed = parse_pool(f"trained:{full_dir},paper")
     via = cuda.replay_grid(heldout, deployed.spec, cfg.objective).costs
     mem = cuda.replay_grid(heldout, res.pool.spec, cfg.objective).costs
-    deploy_launches = pe.LAUNCHES
+    deploy_launches = k1_launches(pe, "trained_deploy")
     if not torch.equal(via[:, 0], mem[:, 0]) or deploy_launches == 0:
         raise SystemExit("[train] trained:<dir> deploys other costs than "
                          "the in-memory θ")
@@ -2413,7 +2554,6 @@ def snapshot_phase(torch, pe, engine, card):
     def cycles(twin):
         return [(c.policy, c.costs, c.started_jobs)
                 for c in twin.telemetry.cycles]
-    pe.LAUNCHES = 0
     _, _, _, full = polaris_cycles(torch, engine, pe, tag="[snapshot]",
                                    ensemble=ENSEMBLE)
     times = {}
@@ -2432,7 +2572,7 @@ def snapshot_phase(torch, pe, engine, card):
         return fresh
     launches, _, _, resumed = polaris_cycles(
         torch, engine, pe, tag="[snapshot]", after_cycle=cut,
-        ensemble=ENSEMBLE)
+        path="snapshot_restore_cycles", ensemble=ENSEMBLE)
     if launches == 0:
         raise SystemExit("[snapshot] the restored run never launched K1")
     if cycles(resumed) != cycles(full) or \
@@ -2492,10 +2632,11 @@ def cli_phase(torch, pe):
             "deploy": RESILIENCE_CLI + ["--pool", f"trained:{tdir},paper"],
         }
         for name, argv in steps.items():
-            pe.LAUNCHES = 0
+            reset_launches(pe)
             runs[device, name] = resilience_cli(device, argv, work)
+            n = k1_launches(pe, f"cli_{name}" if device == "cuda" else None)
             if device == "cuda":
-                launches[name] = pe.LAUNCHES
+                launches[name] = n
     for name in ("chaos", "kill", "resume", "train", "deploy"):
         if runs["cuda", name] != runs["cpu", name]:
             raise SystemExit(f"[resilience-cli] {name}: cuda and cpu "
@@ -2606,22 +2747,24 @@ def differing(torch, a, b, fields, metrics=True):
 GRID_FIELDS = ("start_t", "end_t", "deadlocked", "events", "costs", "best")
 
 
-def fleet_grid_run(torch, pe, fn):
+def fleet_grid_run(torch, pe, fn, path):
     """``fn()`` from K1's count and the peak memory reset: (outcome, wall,
     K1 launches, host reads, peak bytes, bytes already allocated at the
-    reset — earlier outcomes this phase still holds)."""
+    reset — earlier outcomes this phase still holds); the order kernel's
+    launches go to ``ORDER_LAUNCHES[path]``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live = torch.cuda.memory_allocated()
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     with HostReads() as reads:
         t0 = time.perf_counter()
         out = fn()
         out.best.cpu()
         wall = time.perf_counter() - t0
-    if pe.LAUNCHES == 0:
+    launches = k1_launches(pe, path)
+    if launches == 0:
         raise SystemExit("[fleet] a fleet path never launched K1")
-    return (out, wall, pe.LAUNCHES, reads.n,
+    return (out, wall, launches, reads.n,
             torch.cuda.max_memory_allocated(), live)
 
 
@@ -2648,16 +2791,17 @@ def fleet_stream_phase(torch, pe, card):
           f"{make_s:.1f} s to make on the host")
     (one, one_s, one_k1, one_reads, one_mem, one_live), one_pass = (
         capture_pass(pe, lambda: fleet_grid_run(
-            torch, pe, lambda: cuda.replay_grid(scen, pool.spec, "score")),
-            at=FLEET_PASS, host=True))
+            torch, pe, lambda: cuda.replay_grid(scen, pool.spec, "score"),
+            "fleet_one_shot"), at=FLEET_PASS, host=True))
     runs = {}
     for depth in (FLEET_DEPTH, 0):
         run = sharded_replay_grid(make_fleet_mesh(), engine=cuda,
                                   objective="score", block_size=FLEET_BLOCK,
                                   prefetch_depth=depth)
+        path = "fleet_stream" if depth else "fleet_stream_prefetch0"
         runs[depth], block_pass = capture_pass(
             pe, lambda: fleet_grid_run(torch, pe,
-                                       lambda: run(scen, pool.spec)),
+                                       lambda: run(scen, pool.spec), path),
             at=FLEET_PASS, host=True)
         bad = differing(torch, runs[depth][0], one, GRID_FIELDS)
         if bad:
@@ -2719,7 +2863,7 @@ def fleet_stream_phase(torch, pe, card):
     two, two_s, two_k1, two_reads, _, _ = fleet_grid_run(
         torch, pe, lambda: sharded_replay_grid(
             FleetMesh(["cuda:0", "cuda:0"]), engine=cuda, objective="score",
-            block_size=b_sub)(sub, pool.spec))
+            block_size=b_sub)(sub, pool.spec), "fleet_two_shards")
     rows = n_sub * P
     rep = lambda x, dt: torch.as_tensor(x, dtype=dt).cuda(  # noqa: E731
         ).repeat_interleave(P, 0)
@@ -2773,14 +2917,14 @@ def fleet_fan_phase(torch, pe, card, fan_grid, race_grid):
     launches = {}
 
     def counted(name, fn):
-        pe.LAUNCHES = 0
+        reset_launches(pe)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if pe.LAUNCHES == 0:
+        launches[name] = k1_launches(pe, name)
+        if launches[name] == 0:
             raise SystemExit(f"[fleet-fan] {name} never launched K1")
-        launches[name] = pe.LAUNCHES
         return out, wall
     (want, fan_s), (race_want, race_s) = fan_grid, race_grid
     got, stream_s = counted("fleet_fan", lambda: sharded_fan_grid(
@@ -2835,26 +2979,27 @@ def fleet_whatif_phase(torch, pe, snapshot, card):
     want = cuda.decide(snapshot, pool.spec, "score")
     launches, walls = 0, []
     for mesh in (make_fleet_mesh(), FleetMesh(["cuda:0", "cuda:0"])):
-        pe.LAUNCHES = 0
+        reset_launches(pe)
         t0 = time.perf_counter()
         got = sharded_whatif(mesh, engine=cuda, objective="score")(
             snapshot, pool)
         got.costs.cpu()
         walls.append(time.perf_counter() - t0)
-        if pe.LAUNCHES == 0:
+        n = k1_launches(pe, "fleet_whatif")
+        if n == 0:
             raise SystemExit("[fleet-whatif] sharded_whatif never launched "
                              "K1")
-        launches += pe.LAUNCHES
+        launches += n
         for f in ("policy_index", "costs", "run_mask", "deadlocked"):
             if not torch.equal(getattr(got, f), getattr(want, f)):
                 raise SystemExit(f"[fleet-whatif] {mesh.shape['data']} "
                                  f"shard(s): {f} differs from decide")
-    pe.LAUNCHES = 0
+    reset_launches(pe)
     t0 = time.perf_counter()
     legacy = decide_legacy_vmap(snapshot, pool)
     legacy.costs.cpu()
     legacy_s = time.perf_counter() - t0
-    legacy_launches = pe.LAUNCHES
+    legacy_launches = k1_launches(pe, "fleet_legacy_decide", order=False)
     if legacy_launches == 0:
         raise SystemExit("[fleet-whatif] decide_legacy_vmap never launched "
                          "K1")
@@ -2911,11 +3056,12 @@ def fleet_cli_phase(torch, pe):
     mode without them."""
     launches = 0
     for mode in FLEET_CLI:
-        pe.LAUNCHES = 0
+        reset_launches(pe)
         on_cuda, line = fleet_cli("cuda", mode + FLEET_FLAGS)
-        if pe.LAUNCHES == 0:
+        n = k1_launches(pe, "fleet_cli")
+        if n == 0:
             raise SystemExit(f"[fleet-cli] {mode} never launched K1")
-        launches += pe.LAUNCHES
+        launches += n
         on_cpu, _ = fleet_cli("cpu", mode + FLEET_FLAGS)
         plain, _ = fleet_cli("cpu", mode)
         if not on_cuda == on_cpu == plain:
@@ -2933,9 +3079,11 @@ def fleet_cli_phase(torch, pe):
 EXAMPLE_RUN = ("import time\n"
                "from repro_torch.examples import {name} as example\n"
                "from repro_torch.kernels import policy_eval as pe\n"
+               "from repro_torch.kernels import priority_order as po\n"
                "t0 = time.perf_counter()\n"
                "example.main(['--device', 'cuda'])\n"
-               "print('EXAMPLE', pe.LAUNCHES, time.perf_counter() - t0)\n")
+               "print('EXAMPLE', pe.LAUNCHES, po.LAUNCHES,\n"
+               "      time.perf_counter() - t0)\n")
 
 
 def examples_phase(card):
@@ -2956,13 +3104,18 @@ def examples_phase(card):
             if proc.returncode != 0:
                 raise SystemExit(f"[examples] {name} exited "
                                  f"{proc.returncode}: {err[-3000:]}")
-            tag, n, wall = out.strip().splitlines()[-1].split()
+            tag, n, n_order, wall = out.strip().splitlines()[-1].split()
             if tag != "EXAMPLE" or int(n) == 0:
                 raise SystemExit(f"[examples] {name} never launched K1")
+            if int(n_order) != int(n):
+                raise SystemExit(f"[examples] {name}: {n_order} order-kernel"
+                                 f" launches, {n} K1 launches")
             launches[f"example_{name}"] = int(n)
+            ORDER_LAUNCHES[f"example_{name}"] = int(n_order)
             last = out.strip().splitlines()[-2]
             print(f"[examples] python -m repro_torch.examples.{name}: exit "
-                  f"0 after {float(wall):.1f} s on {card}, {n} K1 launches; "
+                  f"0 after {float(wall):.1f} s on {card}, {n} K1 and order "
+                  f"kernel launches each; "
                   f"last line: {last[:100]}")
     finally:
         for proc in procs.values():
@@ -4344,8 +4497,10 @@ def main() -> int:
     engine = DrainEngine(backend="cuda", device="cuda")
     snapshot = polaris_snapshot(engine)
     k1, drain_inputs = kernel_vs_plain(torch, engine, snapshot)
+    order = order_vs_plain(torch, snapshot)
     check_cosim(pe)
-    launches, mirrors, _, _ = polaris_cycles(torch, engine, pe)
+    launches, mirrors, _, _ = polaris_cycles(torch, engine, pe,
+                                             path="polaris_cycles")
     profile_cycle(torch, engine, snapshot)
     k1s_launches, k1s = check_k1_shared(torch, snapshot, mirrors)
     report_k4_plan(logs)
@@ -4402,6 +4557,8 @@ def main() -> int:
              fan_grid_pass=mc["fan_grid_pass"],
              fleet_pass=fleet_pass,
              training_pass=learn["training_pass"]),
+        dict(ORDER, launches=sum(ORDER_LAUNCHES.values()), **order,
+             launches_by_path=dict(ORDER_LAUNCHES)),
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg] + sum(dry_paths["rglru"].values()),
              **k2, launches_by_path={"recurrentgemma-2b": rgemma[rg],

@@ -67,6 +67,18 @@ def static_priority_order(state: SimState, policy,
     return _argsort(keys)
 
 
+def compact_queued_first(order: torch.Tensor,
+                         queued: torch.Tensor) -> torch.Tensor:
+    """Stable-partition each fork's rank order so QUEUED slots take the
+    leading ranks (a cumsum and a row scatter, no sort), which restores
+    ``des.pass_rank_limit``'s queued-first contract for hoisted orders."""
+    q = torch.gather(queued, 1, order.long())
+    nq = torch.cumsum(q, 1, dtype=torch.int32)
+    pos = torch.where(q, nq - 1,
+                      nq[:, -1:] + torch.cumsum(~q, 1, dtype=torch.int32) - 1)
+    return torch.zeros_like(order).scatter(1, pos.long(), order)
+
+
 def _pass(order: torch.Tensor, state: torch.Tensor, nodes: torch.Tensor,
           est: torch.Tensor, end_t: torch.Tensor, free0: torch.Tensor,
           now: torch.Tensor, limit: Optional[torch.Tensor]):

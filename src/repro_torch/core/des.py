@@ -153,7 +153,9 @@ def simulate_to_drain_batched(states: SimState,
     It records a ``drain`` span (``core.telemetry``; a root of its own
     outside a decision) holding one ``drain.read`` span around each
     iteration's read of the loop condition (the host's wait for the
-    card), and counts ``drain.steps``, the iterations dispatched."""
+    card), and counts ``drain.steps``, the iterations dispatched (the
+    order kernel's stage, ``engine.KernelOrder``, counts
+    ``drain.order_kernel`` beside it)."""
     k, J = states.jobs.state.shape
     dev = states.now.device
     max_iters = J + 1
@@ -374,7 +376,8 @@ def simulate_replay_batched(states: SimState, arrival_t: torch.Tensor,
     It records a ``replay`` span (``core.telemetry``) holding one
     ``replay.read`` span a block around the read alone (the host's wait
     for the card), and counts ``replay.steps`` (steps dispatched) and,
-    as a device tensor, ``replay.iters``."""
+    as a device tensor, ``replay.iters`` (the order kernel's stage,
+    ``engine.KernelOrder``, counts ``replay.order_kernel`` beside them)."""
     J = states.jobs.capacity
     max_iters = 2 * J + 2
     spans = telemetry.SPANS

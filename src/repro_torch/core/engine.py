@@ -5,17 +5,20 @@ Every decision cycle forks the synchronized snapshot into k what-if
 simulations, one per candidate policy, and drains them all in lock-step
 (``des.simulate_to_drain_batched``).  Per event:
 
-  1. priority keys are computed and argsorted once for the whole batch
-     (time-invariant forks are hoisted out of the loop, ``hoist_static``);
+  1. the order stage: priority keys are computed and argsorted once for
+     the whole batch (time-invariant forks are hoisted out of the loop,
+     ``hoist_static``);
   2. the sequential greedy + EASY-backfill pass runs through a
      registered backend on the batch axis;
   3. starts are applied and each fork advances to its next predicted end.
 
 Backends (``PASS_BACKENDS``):
 
-  * ``reference`` — the plain batched pass, ``backfill.schedule_pass_batched``;
-  * ``cuda``      — K1, ``kernels.policy_eval.policy_eval_pass_batched``
-    (on CPU tensors it runs the same plain pass);
+  * ``reference`` — the plain batched pass, ``backfill.schedule_pass_batched``,
+    and the plain order stage, ``make_order_fn``;
+  * ``cuda``      — K1, ``kernels.policy_eval.policy_eval_pass_batched``,
+    and the order kernel, ``KernelOrder`` (on CPU tensors both run their
+    plain versions);
   * ``auto``      — ``cuda`` on a CUDA device, ``reference`` on the CPU.
 
 The engine owns a device (default ``cuda``): ``decide``/``drain`` copy
@@ -48,7 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng, scoring, telemetry
-from repro_torch.core.backfill import (priority_order, schedule_pass_batched,
+from repro_torch.core.backfill import (compact_queued_first, priority_order,
+                                       schedule_pass_batched,
                                        static_priority_order)
 from repro_torch.core.des import (DrainMetrics, DrainResult, ReplayResult,
                                   broadcast_state, simulate_replay_batched,
@@ -64,6 +68,7 @@ from repro_torch.core.state import (QUEUED, TIME_NONE, JobTable, SimState,
                                     map_state)
 from repro_torch.device import DeviceLike, resolve_device, upload
 from repro_torch.kernels import policy_eval as _pe
+from repro_torch.kernels import priority_order as _po
 
 logger = logging.getLogger(__name__)
 
@@ -256,18 +261,6 @@ def _index_pool(pool: EnginePool, idx) -> EnginePool:
     return pool[idx]
 
 
-def _compact_queued_first(order: torch.Tensor,
-                          queued: torch.Tensor) -> torch.Tensor:
-    """Stable-partition each fork's rank order so QUEUED slots take the
-    leading ranks (a cumsum and a row scatter, no sort), which restores
-    ``des.pass_rank_limit``'s queued-first contract for hoisted orders."""
-    q = torch.gather(queued, 1, order.long())
-    nq = torch.cumsum(q, 1, dtype=torch.int32)
-    pos = torch.where(q, nq - 1,
-                      nq[:, -1:] + torch.cumsum(~q, 1, dtype=torch.int32) - 1)
-    return torch.zeros_like(order).scatter(1, pos.long(), order)
-
-
 def hoisted_orders(states0: SimState, pool: EnginePool, plan: HoistPlan,
                    ever_queued: torch.Tensor) -> torch.Tensor:
     """The (n_ti, J) static orders of ``plan``'s time-invariant forks."""
@@ -292,8 +285,8 @@ def make_order_fn(states0: SimState, pool: EnginePool, plan: HoistPlan,
     hoisted = hoisted_orders(states0, pool, plan, ever_queued)
 
     if plan_arr.all():
-        return lambda st: _compact_queued_first(hoisted,
-                                                st.jobs.state == QUEUED)
+        return lambda st: compact_queued_first(hoisted,
+                                               st.jobs.state == QUEUED)
 
     tv_idx = upload(np.nonzero(~plan_arr)[0], dev)
     pool_tv = _index_pool(pool, tv_idx)
@@ -302,12 +295,47 @@ def make_order_fn(states0: SimState, pool: EnginePool, plan: HoistPlan,
     inv = upload(np.argsort(perm), dev)
 
     def order_fn(st: SimState) -> torch.Tensor:
-        compacted = _compact_queued_first(
+        compacted = compact_queued_first(
             hoisted, (st.jobs.state == QUEUED)[ti_idx])
         st_tv = map_state(lambda x: x[tv_idx], st)
         fresh = batched_priority_order(st_tv, pool_tv)
         return torch.cat([compacted, fresh], 0)[inv]
     return order_fn
+
+
+class KernelOrder:
+    """The per-event order stage as one launch of the order kernel
+    (``kernels.priority_order``), the same orders as ``make_order_fn``'s
+    plain stage: the pool's rows, ``plan``'s static orders and each
+    fork's row among them are made once, here; a call reads the job
+    table in place.  Each call that ran the kernel (none on CPU tensors,
+    which take its plain version) adds one to ``counter`` in
+    ``telemetry.SPANS``."""
+
+    def __init__(self, states0: SimState, pool: EnginePool, plan: HoistPlan,
+                 ever_queued: torch.Tensor, counter: str):
+        dev = ever_queued.device
+        k, J = states0.jobs.state.shape
+        self.family, self.theta = _po.pool_rows(pool, dev)
+        if plan is None:
+            self.hoisted = torch.empty((0, J), dtype=torch.int32, device=dev)
+            rows = np.full(k, -1)
+        else:
+            self.hoisted = hoisted_orders(states0, pool, plan, ever_queued)
+            hoist = np.asarray(plan, dtype=bool)
+            rows = np.where(hoist, np.cumsum(hoist) - 1, -1)
+        self.hoist_row = upload(rows, dev, torch.int32)
+        self.counter = counter
+
+    def __call__(self, st: SimState) -> torch.Tensor:
+        jobs = st.jobs
+        order = _po.priority_order(jobs.state, jobs.submit_t,
+                                   jobs.est_runtime, jobs.nodes, st.now,
+                                   self.family, self.theta, self.hoisted,
+                                   self.hoist_row)
+        if order.is_cuda:
+            telemetry.SPANS.count(self.counter, 1)
+        return order
 
 
 # ----------------------------------------------------------------------
@@ -354,6 +382,16 @@ class DrainEngine:
 
     def plan(self, pool: EnginePool) -> HoistPlan:
         return hoist_plan(pool, enabled=self.hoist_static)
+
+    def order_fn(self, states0: SimState, pool: EnginePool, plan: HoistPlan,
+                 ever_queued: torch.Tensor, counter: str
+                 ) -> Callable[[SimState], torch.Tensor]:
+        """The per-event order stage of this backend over the forks of
+        ``states0``: the order kernel on ``cuda`` (its launches counted
+        as ``counter``), else the plain stage."""
+        if self.backend == "cuda":
+            return KernelOrder(states0, pool, plan, ever_queued, counter)
+        return make_order_fn(states0, pool, plan, ever_queued)
 
     # -- drains --------------------------------------------------------
     def drain(self, state: SimState, pool: EnginePool) -> DrainResult:
@@ -546,8 +584,9 @@ def _drain_impl(engine: DrainEngine, states: SimState, pool: EnginePool,
                 plan: HoistPlan = None) -> DrainResult:
     # mid-drain no new jobs appear: only slots queued at entry can ever
     # be queued — the tightest hoist domain
-    order_fn = make_order_fn(states, pool, plan,
-                             ever_queued=states.jobs.state == QUEUED)
+    order_fn = engine.order_fn(states, pool, plan,
+                               ever_queued=states.jobs.state == QUEUED,
+                               counter="drain.order_kernel")
     return simulate_to_drain_batched(states, order_fn, engine.pass_fn(),
                                      dynamic_bounds=engine.dynamic_bounds)
 
@@ -836,7 +875,8 @@ def replay_run(engine: DrainEngine, states: SimState,
     # every slot with a finite arrival will be queued at some point (plus
     # any slot already queued at entry): the hoist domain
     ever_queued = torch.isfinite(arrival_t) | (states.jobs.state == QUEUED)
-    order_fn = make_order_fn(states, pool, plan, ever_queued=ever_queued)
+    order_fn = engine.order_fn(states, pool, plan, ever_queued=ever_queued,
+                               counter="replay.order_kernel")
     return simulate_replay_batched(
         states, arrival_t, true_rt, order_fn, engine.pass_fn(),
         dynamic_bounds=engine.dynamic_bounds,

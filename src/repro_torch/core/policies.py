@@ -9,7 +9,11 @@ Two representations, as in the reference:
 * **``PolicySpec``** ``(family, theta)``: key = Φ·θ_lin + a
   family-specific nonlinear term.  The 7 statics are fixed points whose
   keys equal the id stack bit for bit (one-hot weights, and ``_pow``
-  special-cases the small integer exponents).
+  special-cases the small integer exponents), up to the sign of a zero
+  key, which sorts the same.  One exception on the card: the id stack's
+  EXPF divides by the host scalar 3600, which torch runs there as a
+  product with its reciprocal (the order kernel's ``FAM_EXPF_ID`` row,
+  ``kernels/priority_order.py``, repeats it).
 
 Every key function broadcasts over leading axes: ``jobs`` fields may be
 (J,) or (k, J), ``now``/``family`` () or (k,), ``theta`` (N_THETA,) or

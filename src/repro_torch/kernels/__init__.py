@@ -23,3 +23,19 @@ def address(t: torch.Tensor) -> int:
     if t.device.type == "meta":
         return t.storage_offset() * t.element_size()
     return t.data_ptr()
+
+
+def check_arg(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+              device: torch.device) -> None:
+    """Raise unless ``t`` lies on ``device`` with ``dtype`` and ``shape``
+    and is contiguous: what a wrapper checks of each input before it
+    hands the kernel a pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.backfill import schedule_pass_batched
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_arg
 
 #: Kernel launches since the last reset (``LAUNCHES = 0``): K1, then K1'.
 LAUNCHES = 0
@@ -53,19 +53,6 @@ def _kernel(entry: str = "policy_eval_pass_batched"):
             raise RuntimeError("policy_eval.cu and MAX_J disagree")
         _FNS[entry] = fn
     return _FNS[entry]
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def policy_eval_pass_batched(order: torch.Tensor, state: torch.Tensor,
@@ -95,15 +82,15 @@ def policy_eval_pass_batched(order: torch.Tensor, state: torch.Tensor,
         raise ValueError(f"job table of {J} slots exceeds the kernel's "
                          f"MAX_J={MAX_J}")
     i32, f32 = torch.int32, torch.float32
-    _check("order", order, i32, (k, J), dev)
-    _check("state", state, i32, (k, J), dev)
-    _check("nodes", nodes, i32, (k, J), dev)
-    _check("est", est, f32, (k, J), dev)
-    _check("end_t", end_t, f32, (k, J), dev)
-    _check("free0", free0, i32, (k,), dev)
-    _check("now", now, f32, (k,), dev)
+    check_arg("order", order, i32, (k, J), dev)
+    check_arg("state", state, i32, (k, J), dev)
+    check_arg("nodes", nodes, i32, (k, J), dev)
+    check_arg("est", est, f32, (k, J), dev)
+    check_arg("end_t", end_t, f32, (k, J), dev)
+    check_arg("free0", free0, i32, (k,), dev)
+    check_arg("now", now, f32, (k,), dev)
     if limit is not None:
-        _check("limit", limit, i32, (1,), dev)
+        check_arg("limit", limit, i32, (1,), dev)
     started, free = _launch("policy_eval_pass_batched", order, state,
                             nodes, est, end_t, free0, now, limit)
     LAUNCHES += 1
@@ -156,16 +143,16 @@ def policy_eval_pass(order: torch.Tensor, state: torch.Tensor,
         raise ValueError(f"job table of {J} slots exceeds the kernel's "
                          f"MAX_J={MAX_J}")
     i32, f32 = torch.int32, torch.float32
-    _check("order", order, i32, (k, J), dev)
-    _check("state", state, i32, (J,), dev)
-    _check("nodes", nodes, i32, (J,), dev)
-    _check("est", est, f32, (J,), dev)
-    _check("end_t", end_t, f32, (J,), dev)
+    check_arg("order", order, i32, (k, J), dev)
+    check_arg("state", state, i32, (J,), dev)
+    check_arg("nodes", nodes, i32, (J,), dev)
+    check_arg("est", est, f32, (J,), dev)
+    check_arg("end_t", end_t, f32, (J,), dev)
     free0, now = free0.reshape(1), now.reshape(1)
-    _check("free0", free0, i32, (1,), dev)
-    _check("now", now, f32, (1,), dev)
+    check_arg("free0", free0, i32, (1,), dev)
+    check_arg("now", now, f32, (1,), dev)
     if limit is not None:
-        _check("limit", limit, i32, (1,), dev)
+        check_arg("limit", limit, i32, (1,), dev)
     started, free = _launch("policy_eval_pass", order, state, nodes, est,
                             end_t, free0, now, limit)
     SHARED_LAUNCHES += 1

@@ -64,9 +64,9 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   ``start_t``, ``end_t``, ``deadlocked``, ``events``, ``iters``,
   ``pass_invocations``, ``costs`` and ``best`` identical; K1 launched
   once per host iteration on ``cuda``, never on ``reference``.
-* A block of ``des.REPLAY_BLOCK`` replay steps under
-  ``torch.cuda.set_sync_debug_mode("error")``: no step waits for the
-  device.
+* A block of ``des.REPLAY_BLOCK`` replay steps (K1 and the order kernel)
+  under ``torch.cuda.set_sync_debug_mode("error")``: no step waits for
+  the device.
 * The replay under a CUDA ``torch.profiler``: its spans and phases
   (``core.telemetry``) are host ranges, on no device event, and the
   grid is bitwise an unprofiled one's; so are a fan decision's
@@ -123,6 +123,20 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   (K2's two entries, K3, K4) refuse CUDA inputs that require a gradient
   under grad mode, before any launch, and run them under
   ``torch.no_grad()``.
+* The order kernel (``kernels.priority_order``, ``engine.KernelOrder``)
+  against the plain order stage (``engine.make_order_fn``): at the
+  Polaris drain's shape (8,192 forks, J = 1,024) and a farm-shaped batch
+  (49,152 forks interleaved s·P + p, J = 256), every test pool (the
+  Polaris sweep, the paper's, integer ids, random θ) at J from 8 to
+  ``MAX_J`` under hoist plans None, partial and all-static, and forks
+  planted with -0.0/+0.0 ties, ±inf and NaN keys (with
+  ``torch.argsort(stable=True)``'s order of such a row pinned): bitwise,
+  one ``LAUNCHES`` a call.  Its keys equal ``priority_key_spec`` (and
+  integer ids the id stack's) bitwise (C3).  On ``cuda`` the drain and
+  the replay launch it once a step and count it
+  (``drain.order_kernel``, ``replay.order_kernel``), on ``reference``
+  never; a Polaris-size ``decide_fan`` gives the reference backend's
+  winner, costs and ``run_mask``; J > ``MAX_J`` raises.
 """
 import warnings
 
@@ -705,17 +719,18 @@ def test_replay_cuda_matches_reference(grid):
 
 @pytest.mark.cuda
 def test_replay_block_does_not_synchronise():
-    """The replay's body, K1 included, queues a whole block without
-    waiting for the device: ``set_sync_debug_mode("error")`` raises on
-    any synchronising call.  The run then ends as ``replay_grid`` does."""
+    """The replay's body, K1 and the order kernel included, queues a
+    whole block without waiting for the device:
+    ``set_sync_debug_mode("error")`` raises on any synchronising call.
+    The run then ends as ``replay_grid`` does."""
     _card()
     scen, pool = _replay_grids()[1]
     engine = DrainEngine("cuda", device="cuda")
     states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool,
                                                           "cuda")
     plan = engine.plan(pool)
-    order_fn = make_order_fn(states, pool_t, plan * 2, torch.isfinite(
-        arrival_t))
+    order_fn = engine.order_fn(states, pool_t, plan * 2, torch.isfinite(
+        arrival_t), "replay.order_kernel")
     step = des.make_replay_step(arrival_t, true_rt, order_fn,
                                 engine.pass_fn())
     c = des.replay_init(states)
@@ -1347,3 +1362,259 @@ def test_kernel_wrappers_refuse_autograd_on_the_card():
         assert (fa.LAUNCHES, rg.LAUNCHES, wk.LAUNCHES) == before, name
         with torch.no_grad():
             call()
+
+
+# ---- the order kernel (kernels.priority_order) --------------------------
+def _order_states(k, J, frac_q, seed, planted=False):
+    """k forks of J slots on the card: a share ``frac_q`` of the slots
+    queued, submits around each fork's clock, estimates below the 1 s
+    floor; ``planted``: submits on a 600 s grid, so keys repeat."""
+    from repro_torch.core.state import JobTable, SimState
+    rng = np.random.default_rng(seed)
+    state = rng.choice(4, size=(k, J), p=[0.05, frac_q, 0.25,
+                                          0.7 - frac_q]).astype(np.int32)
+    now = rng.uniform(0.0, 2e4, size=k).astype(np.float32)
+    if planted:
+        submit = now[:, None] - rng.integers(-2, 4, size=(k, J)) * 600.0
+    else:
+        submit = now[:, None] - rng.uniform(-100.0, 5e3, size=(k, J))
+    est = rng.choice([0.5, 300.0, 3600.0, 86400.0], size=(k, J))
+    nodes = rng.integers(1, 496, size=(k, J)).astype(np.int32)
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt,  # noqa: E731
+                                                 device="cuda")
+    jobs = JobTable(submit_t=t(submit), nodes=t(nodes, torch.int32),
+                    est_runtime=t(est), start_t=t(submit), end_t=t(submit),
+                    state=t(state, torch.int32))
+    free = torch.full((k,), 560, dtype=torch.int32, device="cuda")
+    return SimState(jobs=jobs, free_nodes=free, total_nodes=free.clone(),
+                    now=t(now))
+
+
+def _order_pools():
+    """The Polaris sweep, the paper's pool, integer ids and random θ of
+    every family (exponents off {1, 2, 3}, τ = inf on one row)."""
+    import sys
+    sys.path.insert(0, "tests")
+    from test_torch_order import _random_pool
+    from repro_torch.core.policies import EXTENDED_POOL
+    return {"polaris": parse_pool(DRAS).spec,
+            "paper": parse_pool("paper").spec,
+            "ids": torch.tensor(EXTENDED_POOL, dtype=torch.int32),
+            "random_theta": _random_pool(11)}
+
+
+DRAS = "extended,wfp:a=1..5x5:tau=600..7200x5"
+
+
+def _assert_order_stage(pool, states, plans):
+    """The kernel's order (one launch a call) against the plain stage's
+    on every state, under every hoist plan: bitwise."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.engine import KernelOrder
+    from repro_torch.core.state import QUEUED as Q
+    from repro_torch.kernels import priority_order as po
+    s0 = states[0]
+    ever = s0.jobs.state == Q
+    for plan in plans:
+        want_fn = make_order_fn(s0, pool, plan, ever)
+        got_fn = KernelOrder(s0, pool, plan, ever, "order.kernel")
+        with telemetry.SPANS.span("order"):
+            for st in states:
+                launches = po.LAUNCHES
+                got = got_fn(st)
+                assert po.LAUNCHES == launches + 1
+                want = want_fn(st)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), plan
+        assert telemetry.SPANS.roots[-1].counts()["order.kernel"] == len(
+            states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["polaris", "farm"])
+def test_order_kernel_matches_plain_stage(shape):
+    """At the Polaris drain's shape (the k=32 sweep x 256 futures = 8,192
+    forks, J = 1,024) and a farm-shaped batch (the paper's pool x 16,384
+    scenarios, interleaved s·P + p, J = 256), over queued shares from 0.65
+    to 0.05: the kernel's order is the plain stage's, hoisted and not."""
+    from repro_torch.core.engine import tile_pool
+    _card()
+    if shape == "polaris":
+        pool, S, J, fracs = parse_pool(DRAS).spec, 256, 1024, (0.65, 0.2,
+                                                                0.05)
+    else:
+        pool, S, J, fracs = parse_pool("paper").spec, 16384, 256, (0.1,
+                                                                    0.4)
+    pool = tile_pool(pool, S).to("cuda")
+    k = pool.family.shape[0]
+    engine = DrainEngine("cuda", device="cuda")
+    states = [_order_states(k, J, f, seed=i, planted=i % 2 == 1)
+              for i, f in enumerate(fracs)]
+    _assert_order_stage(pool, states, (engine.plan(pool), None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [8, 150, 256, 1024, 4096])
+def test_order_kernel_small_pools_every_plan(J):
+    """Every test pool at J from 8 to the kernel's largest (sorts above
+    1,024 words pass through shared memory), hoist plans None, partial
+    and all-static."""
+    from repro_torch.core.engine import tile_pool
+    from repro_torch.core.policies import time_invariant_mask
+    _card()
+    for name, pool in _order_pools().items():
+        pool = tile_pool(pool, 3)
+        k = pool.shape[0] if isinstance(pool, torch.Tensor) else \
+            pool.family.shape[0]
+        mask = time_invariant_mask(pool)
+        partial = tuple(bool(b) for b in mask) if mask.any() else \
+            tuple(i % 2 == 0 for i in range(k))
+        states = [_order_states(k, J, f, seed=J + i, planted=i == 1)
+                  for i, f in enumerate((0.6, 0.3, 0.0))]
+        _assert_order_stage(pool.to("cuda"), states,
+                            (None, partial, (True,) * k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [8, 150, 256, 1024])
+def test_order_kernel_planted_keys(J):
+    """-0.0 ties +0.0, -inf first, +inf after every finite key (and tied
+    with the slots that are not queued), NaN last, ties in slot order:
+    ``torch.argsort(stable=True)``'s order on the card, pinned here on a
+    raw row, and the kernel's on forks planted with such keys."""
+    import sys
+    sys.path.insert(0, "tests")
+    from test_torch_order import _planted
+    _card()
+    nan, inf = float("nan"), float("inf")
+    row = torch.tensor([0.0, -0.0, inf, -inf, nan, 1.0, -0.0, inf, nan,
+                        -1.0], device="cuda")
+    row = row.repeat(J // 10 + 1)[:J] if J >= 10 else row[:J]
+    got = torch.argsort(row, stable=True).cpu()
+    assert torch.equal(got, torch.argsort(row.cpu(), stable=True))
+    pool, st = _planted(J)
+    _assert_order_stage(pool.to("cuda"), [st.to("cuda")],
+                        (None, (False, True, False, True, False)))
+
+
+@pytest.mark.cuda
+def test_order_kernel_keys_match_torch():
+    """C3: the kernel's keys (its ``priority_keys`` entry) equal
+    ``policies.priority_key_spec`` run as torch's CUDA ops, bitwise, over
+    the Polaris sweep (exponents 1 to 5, τ = inf and finite), random θ
+    and planted rows; integer ids lifted to their rows equal
+    ``policies.priority_key``'s id stack (its EXPF row divides by a host
+    scalar, which torch runs as a reciprocal product on the card)."""
+    import sys
+    sys.path.insert(0, "tests")
+    from test_torch_order import _planted
+    from repro_torch.core import policies
+    from repro_torch.core.engine import tile_pool
+    from repro_torch.core.state import QUEUED as Q
+    from repro_torch.kernels import priority_order as po
+    _card()
+    cases = []
+    for name, pool in _order_pools().items():
+        pool = tile_pool(pool, 8).to("cuda")
+        k = pool.shape[0] if isinstance(pool, torch.Tensor) else \
+            pool.family.shape[0]
+        for i in range(2):
+            cases.append((name, pool, _order_states(k, 1024, 0.5, seed=i,
+                                                    planted=i == 1)))
+    pool, st = _planted(256)
+    cases.append(("planted", pool.to("cuda"), st.to("cuda")))
+    for name, pool, st in cases:
+        jobs = st.jobs
+        got = po.priority_keys(jobs.state, jobs.submit_t, jobs.est_runtime,
+                               jobs.nodes, st.now,
+                               *po.pool_rows(pool, st.now.device))
+        if isinstance(pool, torch.Tensor):
+            want = policies.priority_key(jobs, st.now, pool.long())
+        else:
+            want = policies.priority_key_spec(jobs, st.now, pool)
+        want = torch.where(jobs.state == Q, want, torch.inf)
+        torch.cuda.synchronize()
+        same = (got == want) | (got.isnan() & want.isnan())
+        assert bool(same.all()), (name, int((~same).sum()))
+
+
+@pytest.mark.cuda
+def test_order_kernel_counts_one_launch_a_step():
+    """On ``cuda`` the drain and the replay launch the order kernel once
+    a step, as K1, and count it (``drain.order_kernel``,
+    ``replay.order_kernel``); on ``reference`` neither launches."""
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import priority_order as po
+    _card()
+    scen, pool = _replay_grids()[1]
+    snapshot = chip_smoke_snapshot()
+    for backend in ("cuda", "reference"):
+        engine = DrainEngine(backend, device="cuda")
+        before = (pe.LAUNCHES, po.LAUNCHES)
+        engine.decide(snapshot, pool)
+        torch.cuda.synchronize()
+        n = telemetry.SPANS.roots[-1].counts()
+        k1, order = pe.LAUNCHES - before[0], po.LAUNCHES - before[1]
+        want = n["drain.steps"] if backend == "cuda" else 0
+        assert k1 == order == n.get("drain.order_kernel", 0) == want
+        before = (pe.LAUNCHES, po.LAUNCHES)
+        engine.replay_grid(scen, pool)
+        torch.cuda.synchronize()
+        n = telemetry.SPANS.roots[-1].counts()
+        k1, order = pe.LAUNCHES - before[0], po.LAUNCHES - before[1]
+        want = n["replay.steps"] if backend == "cuda" else 0
+        assert k1 == order == n.get("replay.order_kernel", 0) == want
+
+
+def chip_smoke_snapshot():
+    """The Polaris mirror of ``chip_smoke.py`` (560 nodes, 1,024 slots,
+    ~100 running and ~600 queued jobs)."""
+    import chip_smoke
+    return chip_smoke.polaris_snapshot(None)
+
+
+@pytest.mark.cuda
+def test_polaris_fan_decision_cuda_matches_reference():
+    """A Polaris-size fan decision (the k=32 sweep x 16 futures with noise
+    and failures, J = 1,024; the reference pass's (k, J, J) shadow
+    tables do not fit the card at the cell's 256 futures), after the
+    three running jobs due first have ended so that some job starts: the
+    ``cuda`` backend (K1 and the order kernel) returns the ``reference``
+    backend's winner, costs and a non-empty ``run_mask``."""
+    from repro_torch.core import sync
+    from repro_torch.core.events import Event, EventKind
+    _card()
+    snapshot = chip_smoke_snapshot()
+    jobs = snapshot.jobs
+    running = (jobs.state == 2).nonzero().flatten().tolist()
+    running.sort(key=lambda j: float(jobs.end_t[j]))
+    for j in running[:3]:
+        snapshot, _ = sync.apply_event(snapshot, Event(
+            EventKind.JOBOBIT, max(float(jobs.end_t[j]),
+                                   float(snapshot.now)), j))
+    pool = parse_pool(DRAS).spec
+    fan = FanSpec(n=16, runtime_noise=0.3, failure_prob=0.1,
+                  failure_frac=0.1, seed=7)
+    got = DrainEngine("cuda", device="cuda").decide_fan(
+        snapshot, pool, fan, "cvar:0.9:score")
+    want = DrainEngine("reference", device="cuda").decide_fan(
+        snapshot, pool, fan, "cvar:0.9:score")
+    torch.cuda.synchronize()
+    assert int(got.policy_index) == int(want.policy_index)
+    assert torch.equal(got.costs, want.costs)
+    assert bool(got.run_mask.any())
+    assert torch.equal(got.run_mask, want.run_mask)
+
+
+@pytest.mark.cuda
+def test_order_kernel_refuses_tables_past_max_j():
+    from repro_torch.core.engine import KernelOrder
+    from repro_torch.kernels import priority_order as po
+    _card()
+    pool = parse_pool("paper").spec.to("cuda")
+    st = _order_states(3, po.MAX_J + 1, 0.5, seed=0)
+    stage = KernelOrder(st, pool, None, st.jobs.state == 1, "order.kernel")
+    launches = po.LAUNCHES
+    with pytest.raises(ValueError, match="MAX_J"):
+        stage(st)
+    assert po.LAUNCHES == launches

@@ -414,6 +414,31 @@ def test_kernel_wrapper_refuses_without_a_card():
     assert started.shape == (2, 8) and free.shape == (2,)
 
 
+def test_order_kernel_wrapper_refuses_without_a_card():
+    """The order kernel's wrapper: no library without a card, other
+    devices refused before any launch, CPU tensors to the plain version
+    (a table with nothing queued keeps slot order)."""
+    from repro_torch.kernels import priority_order as po
+    _no_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build.load("priority_order")
+    k, J = 2, 8
+    i32 = dict(dtype=torch.int32)
+    shapes = [((k, J), i32), ((k, J), {}), ((k, J), {}), ((k, J), i32),
+              ((k,), {}), ((k,), i32), ((k, 9), {}), ((0, J), i32)]
+    meta = [torch.empty(s, device="meta", **kw) for s, kw in shapes]
+    rows = torch.full((k,), -1, **i32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        po.priority_order(*meta, rows.to("meta"))
+    launches = po.LAUNCHES
+    order = po.priority_order(*(torch.zeros_like(a, device="cpu")
+                                for a in meta), rows)
+    assert po.LAUNCHES == launches
+    assert order.dtype == torch.int32
+    assert torch.equal(order, torch.arange(J, dtype=torch.int32).expand(k,
+                                                                        J))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
