@@ -448,15 +448,17 @@ def capture_drain_passes(torch, engine, snapshot, every=20):
     """The pass inputs of one real drain of the Polaris snapshot: the
     first pass, then every ``every``-th lock-step iteration."""
     from repro_torch.core import des
-    from repro_torch.core.engine import make_order_fn
+    from repro_torch.core.engine import OrderStage
     from repro_torch.core.policies import parse_pool
     from repro_torch.core.state import QUEUED
     from repro_torch.kernels import policy_eval as pe
+    from repro_torch.kernels import priority_order as po
     pool = parse_pool(DRAS_POOL).spec.to(engine.device)
     states = des.broadcast_state(snapshot.to(engine.device),
                                  pool.family.shape[0])
-    order_fn = make_order_fn(states, pool, engine.plan(pool),
-                             states.jobs.state == QUEUED)
+    order_fn = OrderStage(states, pool, engine.plan(pool),
+                          states.jobs.state == QUEUED,
+                          po.priority_order_plain)
     captured, step = [], [0]
 
     def pass_fn(st, order, limit):
@@ -573,7 +575,7 @@ def kernel_vs_plain(torch, engine, snapshot):
 
 
 def order_vs_plain(torch, snapshot, every=25):
-    """The order kernel against the plain order stage on the card: every
+    """The order kernel against its plain version on the card: every
     ``every``-th step of a real Polaris fan drain (the k=32 sweep x 256
     futures = 8,192 forks, J = 1,024, noise and failures as the Polaris
     cell's) and a farm-shaped batch (the paper's pool x 16,384 random
@@ -581,8 +583,7 @@ def order_vs_plain(torch, snapshot, every=25):
     on the drain's first, middle and last captured steps and on the farm
     batch, beside the bound (16 B a slot of a re-sorted fork, 8 B of a
     hoisted one, 4 B written)."""
-    from repro_torch.core.engine import (DrainEngine, KernelOrder,
-                                         make_order_fn, tile_pool)
+    from repro_torch.core.engine import DrainEngine, OrderStage, tile_pool
     from repro_torch.core.fan import FanSpec
     from repro_torch.core.policies import parse_pool
     from repro_torch.core.state import QUEUED
@@ -591,9 +592,10 @@ def order_vs_plain(torch, snapshot, every=25):
     captured, step = [], [0]
 
     class Checked(DrainEngine):
-        def order_fn(self, states0, pool, plan, ever_queued, counter):
-            kernel = KernelOrder(states0, pool, plan, ever_queued, counter)
-            plain = make_order_fn(states0, pool, plan, ever_queued)
+        def order_fn(self, states0, pool, plan, ever_queued):
+            kernel = super().order_fn(states0, pool, plan, ever_queued)
+            plain = OrderStage(states0, pool, plan, ever_queued,
+                               po.priority_order_plain)
 
             def fn(st):
                 got = kernel(st)
@@ -630,8 +632,9 @@ def order_vs_plain(torch, snapshot, every=25):
     farm = synthetic_order_state(torch, 49152, 256, seed=5)
     ever = farm.jobs.state == QUEUED
     plan = DrainEngine("cuda", device="cuda").plan(farm_pool)
-    farm_kernel = KernelOrder(farm, farm_pool, plan, ever, "order.kernel")
-    farm_plain = make_order_fn(farm, farm_pool, plan, ever)
+    farm_kernel = OrderStage(farm, farm_pool, plan, ever, po.priority_order)
+    farm_plain = OrderStage(farm, farm_pool, plan, ever,
+                            po.priority_order_plain)
     if not torch.equal(farm_kernel(farm), farm_plain(farm)):
         raise SystemExit("[order] MISMATCH on the farm-shaped batch")
     for name, (kernel, plain, st) in picks + (
@@ -1728,7 +1731,7 @@ def replay_phase(torch, pe, snapshot):
     states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool.spec,
                                                           "cuda")
     order_fn = cuda.order_fn(states, pool_t, cuda.plan(pool.spec) * S,
-                             torch.isfinite(arrival_t), "replay.order_kernel")
+                             torch.isfinite(arrival_t))
     N = des.REPLAY_BLOCK
     w_at = max(1, min(20, reads - 4))
     k1_pass, capture = cuda.pass_fn(), []
@@ -2170,7 +2173,7 @@ def fan_grid_phase(torch, pe, card):
     states, arrival_t, true_rt, pool_t, _ = _assemble_replay_inputs(
         *rows, pool.spec.to("cuda"), P)
     order_fn = cuda.order_fn(states, pool_t, cuda.plan(pool.spec) * (S * F),
-                             torch.isfinite(arrival_t), "replay.order_kernel")
+                             torch.isfinite(arrival_t))
     N = des.REPLAY_BLOCK
     step = des.make_replay_step(arrival_t, true_rt, order_fn,
                                 cuda.pass_fn())
@@ -2370,8 +2373,7 @@ def grid_blocks_traced(torch, pe, engine, scen, pool_spec, tag, what,
     plan = engine.plan(pool_spec)
     order_fn = engine.order_fn(states, pool_t,
                                plan * S if plan is not None else None,
-                               torch.isfinite(arrival_t),
-                               "replay.order_kernel")
+                               torch.isfinite(arrival_t))
     step = des.make_replay_step(arrival_t, true_rt, order_fn,
                                 engine.pass_fn())
 

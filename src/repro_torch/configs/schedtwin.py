@@ -36,7 +36,7 @@ class TwinConfig:
     ensemble_noise: float = 0.3
     trace_seed: int = 0
     accuracy: Tuple[float, float] = (0.5, 1.0)     # true/estimated runtime
-    # pass backend ("reference" | "cuda" | "auto") and the engine's device
+    # engine backend ("reference" | "cuda" | "auto") and its device
     backend: str = "auto"
     device: DeviceLike = "cuda"
 

@@ -1,7 +1,6 @@
 """SchedTwin core on PyTorch: the port of ``repro.core``."""
-from repro_torch.core.engine import (PASS_BACKENDS, Decision, DrainEngine,
-                                     FanOutcome, ReplayOutcome,
-                                     register_backend)
+from repro_torch.core.engine import (BACKENDS, Decision, DrainEngine,
+                                     FanOutcome, ReplayOutcome)
 from repro_torch.core.events import (BusReadError, DeadLetter, Event,
                                      EventBus, EventKind, SeqTracker,
                                      read_with_retry, validate_event)
@@ -23,7 +22,7 @@ from repro_torch.core.whatif import (decide, decide_ensemble,
                                      sharded_replay_grid, sharded_whatif)
 
 __all__ = [
-    "PASS_BACKENDS", "Decision", "DrainEngine", "register_backend",
+    "BACKENDS", "Decision", "DrainEngine",
     "ReplayOutcome", "FanOutcome",
     "FanSpec", "normalize_fan", "pruned_fan_grid",
     "RaceSpec", "RaceOutcome", "normalize_race", "race_grid",

@@ -5,7 +5,7 @@
 * ``simulate_to_drain_batched`` — the hot path: all k forks carried as
   a leading axis and advanced in lock-step with per-fork done/dead
   masks.  Keys, argsort and the scheduling pass run once per event for
-  the whole batch, the pass through a pluggable backend
+  the whole batch, each through an entry of the engine's backend
   (``repro_torch.core.engine``).  Future arrivals are not simulated
   (§3.2): the horizon holds only predicted job ends.  The loop bound is
   ``max_jobs + 1``.
@@ -142,20 +142,18 @@ def apply_starts(st: SimState, started: torch.Tensor) -> SimState:
 
 def simulate_to_drain_batched(states: SimState,
                               order_fn: Callable[[SimState], torch.Tensor],
-                              pass_fn: BatchedPassFn,
-                              dynamic_bounds: bool = True) -> DrainResult:
+                              pass_fn: BatchedPassFn) -> DrainResult:
     """Drain all k forks of ``states`` (leading axis on every leaf) in
     lock-step.  ``order_fn`` maps the batched state to the (k, J)
     priority order; ``pass_fn`` runs the greedy/backfill pass up to the
-    rank limit.  A fork that drains or deadlocks freezes while the rest
-    keep stepping, so the result is the stack of k scalar drains.
+    rank limit (``pass_rank_limit``).  A fork that drains or deadlocks
+    freezes while the rest keep stepping, so the result is the stack of
+    k scalar drains.
 
     It records a ``drain`` span (``core.telemetry``; a root of its own
     outside a decision) holding one ``drain.read`` span around each
     iteration's read of the loop condition (the host's wait for the
-    card), and counts ``drain.steps``, the iterations dispatched (the
-    order kernel's stage, ``engine.KernelOrder``, counts
-    ``drain.order_kernel`` beside it)."""
+    card), and counts ``drain.steps``, the iterations dispatched."""
     k, J = states.jobs.state.shape
     dev = states.now.device
     max_iters = J + 1
@@ -174,7 +172,7 @@ def simulate_to_drain_batched(states: SimState,
             if not more:
                 break
             order = order_fn(st)
-            limit = pass_rank_limit(st, active) if dynamic_bounds else None
+            limit = pass_rank_limit(st, active)
             started = pass_fn(st, order, limit) & active[:, None]
             st = apply_starts(st, started)
             if it == 0:
@@ -264,8 +262,7 @@ def replay_cond(c: ReplayCarry, arrival_t: torch.Tensor) -> torch.Tensor:
 
 def make_replay_step(arrival_t: torch.Tensor, true_rt: torch.Tensor,
                      order_fn: Callable[[SimState], torch.Tensor],
-                     pass_fn: BatchedPassFn, dynamic_bounds: bool = True,
-                     elide_empty: bool = True
+                     pass_fn: BatchedPassFn
                      ) -> Callable[[ReplayCarry], ReplayCarry]:
     """One lock-step replay iteration as a function of the carry.  It
     reads nothing back to the host and its shapes never depend on the
@@ -276,7 +273,7 @@ def make_replay_step(arrival_t: torch.Tensor, true_rt: torch.Tensor,
     are masked with ``live`` (the pass starts only queued jobs, so when
     no live fork has one the mask empties it: the same bits).
     ``pass_invocations`` still counts the reference's passes: steps
-    where the condition held and, with ``elide_empty``, ``limit > 0``.
+    where the condition held and ``limit > 0``.
 
     Under a profiler the step's parts are ranges
     (``telemetry.SpanRecorder.phase``):
@@ -332,15 +329,14 @@ def make_replay_step(arrival_t: torch.Tensor, true_rt: torch.Tensor,
             limit = pass_rank_limit(st, live)
             with phase("replay.order"):
                 order = order_fn(st)
-            started = pass_fn(st, order, limit if dynamic_bounds else None)
-            started = started & live[:, None]
+            started = pass_fn(st, order, limit) & live[:, None]
         with phase("replay.starts"):
             st = apply_starts(st, started)
             true_end = torch.where(started, st.now[:, None] + true_rt,
                                    c.true_end)
             start_ord = torch.where(started, c.it * (J + 1) + slots[None, :],
                                     c.start_ord)
-            ran = go & (limit[0] > 0) if elide_empty else go
+            ran = go & (limit[0] > 0)
             return ReplayCarry(
                 st=st, cursor=cursor, true_end=true_end, start_ord=start_ord,
                 it=c.it + go.to(torch.int32), dead=dead,
@@ -352,9 +348,7 @@ def make_replay_step(arrival_t: torch.Tensor, true_rt: torch.Tensor,
 def simulate_replay_batched(states: SimState, arrival_t: torch.Tensor,
                             true_rt: torch.Tensor,
                             order_fn: Callable[[SimState], torch.Tensor],
-                            pass_fn: BatchedPassFn,
-                            dynamic_bounds: bool = True,
-                            elide_empty: bool = True) -> ReplayResult:
+                            pass_fn: BatchedPassFn) -> ReplayResult:
     """Replay k trace forks event by event in lock-step.
 
     ``states`` is a batched ``SimState`` whose job table is preloaded
@@ -376,14 +370,12 @@ def simulate_replay_batched(states: SimState, arrival_t: torch.Tensor,
     It records a ``replay`` span (``core.telemetry``) holding one
     ``replay.read`` span a block around the read alone (the host's wait
     for the card), and counts ``replay.steps`` (steps dispatched) and,
-    as a device tensor, ``replay.iters`` (the order kernel's stage,
-    ``engine.KernelOrder``, counts ``replay.order_kernel`` beside them)."""
+    as a device tensor, ``replay.iters``."""
     J = states.jobs.capacity
     max_iters = 2 * J + 2
     spans = telemetry.SPANS
     with spans.span("replay"):
-        step = make_replay_step(arrival_t, true_rt, order_fn, pass_fn,
-                                dynamic_bounds, elide_empty)
+        step = make_replay_step(arrival_t, true_rt, order_fn, pass_fn)
         c = replay_init(states)
         done = 0
         while done < max_iters:

@@ -1,24 +1,25 @@
-"""Policy-batched drain engine with pluggable scheduling-pass backends —
+"""Policy-batched drain engine with a table of backends —
 port of ``repro/core/engine.py``.
 
 Every decision cycle forks the synchronized snapshot into k what-if
 simulations, one per candidate policy, and drains them all in lock-step
 (``des.simulate_to_drain_batched``).  Per event:
 
-  1. the order stage: priority keys are computed and argsorted once for
-     the whole batch (time-invariant forks are hoisted out of the loop,
-     ``hoist_static``);
-  2. the sequential greedy + EASY-backfill pass runs through a
-     registered backend on the batch axis;
+  1. the order stage (``OrderStage``): each fork's priority keys and
+     stable argsort, or, for a time-invariant fork, its order hoisted
+     out of the loop and compacted queued-first;
+  2. the sequential greedy + EASY-backfill pass on the batch axis;
   3. starts are applied and each fork advances to its next predicted end.
 
-Backends (``PASS_BACKENDS``):
+A backend (``BACKENDS``) names the entry of each stage; the order entries
+share ``kernels.priority_order``'s signature and the pass entries
+``backfill.schedule_pass_batched``'s:
 
-  * ``reference`` — the plain batched pass, ``backfill.schedule_pass_batched``,
-    and the plain order stage, ``make_order_fn``;
-  * ``cuda``      — K1, ``kernels.policy_eval.policy_eval_pass_batched``,
-    and the order kernel, ``KernelOrder`` (on CPU tensors both run their
-    plain versions);
+  * ``reference`` — the plain versions, ``priority_order_plain`` and
+    ``schedule_pass_batched``;
+  * ``cuda``      — the order kernel, ``kernels.priority_order``, and K1,
+    ``kernels.policy_eval.policy_eval_pass_batched`` (on CPU tensors
+    both run their plain versions);
   * ``auto``      — ``cuda`` on a CUDA device, ``reference`` on the CPU.
 
 The engine owns a device (default ``cuda``): ``decide``/``drain`` copy
@@ -33,12 +34,12 @@ Monte-Carlo decisions ride the same fork axis (DESIGN.md §§10-11):
 key), ``decide_fan`` (f = φ·k + p, the ``fan.FanSpec`` perturbations),
 ``fan_grid``/``fan_window_grid`` (f = (s·F + φ)·P + p, the fan expanded
 on the device from the base scenarios) and the races over them
-(``core/race.py``).  Every fork of them runs the same pass backend, so
-on ``cuda`` each is K1 at k = F·P or S·F·P.  The fleet entry points
-(``core/whatif.py``'s ``sharded_*``) split these grids into fixed-shape
-blocks and shards over a ``launch.mesh.FleetMesh`` and run each piece
-through ``replay_run``; ``shard_local_plan`` gives a shard its hoist
-plan.
+(``core/race.py``).  Every fork of them runs the same backend, so on
+``cuda`` each step is one order launch and one K1 launch at k = F·P or
+S·F·P.  The fleet entry points (``core/whatif.py``'s ``sharded_*``)
+split these grids into fixed-shape blocks and shards over a
+``launch.mesh.FleetMesh`` and run each piece through ``replay_run``;
+``shard_local_plan`` gives a shard its hoist plan.
 """
 from __future__ import annotations
 
@@ -50,12 +51,12 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import backfill as _bf
 from repro_torch.core import prng, scoring, telemetry
-from repro_torch.core.backfill import (compact_queued_first, priority_order,
-                                       schedule_pass_batched,
-                                       static_priority_order)
-from repro_torch.core.des import (DrainMetrics, DrainResult, ReplayResult,
-                                  broadcast_state, simulate_replay_batched,
+from repro_torch.core.backfill import priority_order, static_priority_order
+from repro_torch.core.des import (BatchedPassFn, DrainMetrics, DrainResult,
+                                  ReplayResult, broadcast_state,
+                                  simulate_replay_batched,
                                   simulate_to_drain_batched, state_metrics)
 from repro_torch.core.fan import (FanSpec, _member_draws, failure_downs,
                                   lognormal_scale, normalize_fan,
@@ -170,50 +171,26 @@ class FanOutcome(NamedTuple):
 
 
 # ----------------------------------------------------------------------
-# Pass backends: (batched SimState, order (k, J), rank limit) -> started
+# Backends: each names its order entry and its pass entry.
 # ----------------------------------------------------------------------
 
-PassFn = Callable[[SimState, torch.Tensor, Optional[torch.Tensor]],
-                  torch.Tensor]
-PASS_BACKENDS: Dict[str, Callable[["DrainEngine"], PassFn]] = {}
+class Backend(NamedTuple):
+    """A backend's two entries: ``order`` with the order kernel's
+    signature (``kernels.priority_order``), ``pass_`` with the plain
+    pass's (``backfill.schedule_pass_batched``)."""
+    order: Callable[..., torch.Tensor]
+    pass_: Callable[..., Tuple]
 
 
-def register_backend(name: str):
-    """Register a pass-backend factory under ``name``."""
-    def deco(factory: Callable[["DrainEngine"], PassFn]):
-        PASS_BACKENDS[name] = factory
-        return factory
-    return deco
-
-
-def _pass_inputs(states: SimState, order: torch.Tensor, limit):
-    jobs = states.jobs
-    return (order, jobs.state, jobs.nodes, jobs.est_runtime, jobs.end_t,
-            states.free_nodes, states.now, limit)
-
-
-@register_backend("reference")
-def _reference_backend(engine: "DrainEngine") -> PassFn:
-    """The plain batched pass (the port's oracle)."""
-    def pass_fn(states: SimState, order: torch.Tensor, limit):
-        return schedule_pass_batched(*_pass_inputs(states, order, limit))[0]
-    return pass_fn
-
-
-@register_backend("cuda")
-def _cuda_backend(engine: "DrainEngine") -> PassFn:
-    """K1, the hand-written CUDA pass (one block per fork)."""
-    def pass_fn(states: SimState, order: torch.Tensor, limit):
-        return _pe.policy_eval_pass_batched(
-            *_pass_inputs(states, order, limit))[0]
-    return pass_fn
-
-
-def batched_priority_order(states: SimState, pool: EnginePool
-                           ) -> torch.Tensor:
-    """(k, J) priority order for the whole fork batch: one batched key
-    evaluation and one stable argsort per event."""
-    return priority_order(states, pool)
+#: Each entry is looked up on its module at every call, so that a caller
+#: that replaces a module's function sees each launch (``twinbench``'s
+#: trace window and ``chip_smoke.py``'s spies wrap K1's entry).
+BACKENDS: Dict[str, Backend] = {
+    "reference": Backend(lambda *a: _po.priority_order_plain(*a),
+                         lambda *a: _bf.schedule_pass_batched(*a)),
+    "cuda": Backend(lambda *a: _po.priority_order(*a),
+                    lambda *a: _pe.policy_eval_pass_batched(*a)),
+}
 
 
 # ----------------------------------------------------------------------
@@ -225,11 +202,8 @@ def batched_priority_order(states: SimState, pool: EnginePool
 HoistPlan = Optional[Tuple[bool, ...]]
 
 
-def hoist_plan(pool: EnginePool, enabled: bool = True) -> HoistPlan:
-    """The static hoist plan of a pool (None when disabled or when no
-    fork qualifies)."""
-    if not enabled:
-        return None
+def hoist_plan(pool: EnginePool) -> HoistPlan:
+    """The static hoist plan of a pool (None when no fork qualifies)."""
     mask = time_invariant_mask(pool)
     if not mask.any():
         return None
@@ -261,59 +235,17 @@ def _index_pool(pool: EnginePool, idx) -> EnginePool:
     return pool[idx]
 
 
-def hoisted_orders(states0: SimState, pool: EnginePool, plan: HoistPlan,
-                   ever_queued: torch.Tensor) -> torch.Tensor:
-    """The (n_ti, J) static orders of ``plan``'s time-invariant forks."""
-    ti_idx = upload(np.nonzero(np.asarray(plan, dtype=bool))[0],
-                    ever_queued.device)
-    states_ti = map_state(lambda x: x[ti_idx], states0)
-    return static_priority_order(states_ti, _index_pool(pool, ti_idx),
-                                 ever_queued[ti_idx])
-
-
-def make_order_fn(states0: SimState, pool: EnginePool, plan: HoistPlan,
-                  ever_queued: torch.Tensor,
-                  ) -> Callable[[SimState], torch.Tensor]:
-    """The per-event order stage, with static-key forks hoisted: their
-    rows are ranked once over ``ever_queued`` and re-compacted
-    queued-first per event; the other forks re-sort every event."""
-    if plan is None:
-        return lambda st: batched_priority_order(st, pool)
-    dev = ever_queued.device
-    plan_arr = np.asarray(plan, dtype=bool)
-    ti_idx = upload(np.nonzero(plan_arr)[0], dev)
-    hoisted = hoisted_orders(states0, pool, plan, ever_queued)
-
-    if plan_arr.all():
-        return lambda st: compact_queued_first(hoisted,
-                                               st.jobs.state == QUEUED)
-
-    tv_idx = upload(np.nonzero(~plan_arr)[0], dev)
-    pool_tv = _index_pool(pool, tv_idx)
-    perm = np.concatenate([np.nonzero(plan_arr)[0],
-                           np.nonzero(~plan_arr)[0]])
-    inv = upload(np.argsort(perm), dev)
-
-    def order_fn(st: SimState) -> torch.Tensor:
-        compacted = compact_queued_first(
-            hoisted, (st.jobs.state == QUEUED)[ti_idx])
-        st_tv = map_state(lambda x: x[tv_idx], st)
-        fresh = batched_priority_order(st_tv, pool_tv)
-        return torch.cat([compacted, fresh], 0)[inv]
-    return order_fn
-
-
-class KernelOrder:
-    """The per-event order stage as one launch of the order kernel
-    (``kernels.priority_order``), the same orders as ``make_order_fn``'s
-    plain stage: the pool's rows, ``plan``'s static orders and each
-    fork's row among them are made once, here; a call reads the job
-    table in place.  Each call that ran the kernel (none on CPU tensors,
-    which take its plain version) adds one to ``counter`` in
-    ``telemetry.SPANS``."""
+class OrderStage:
+    """The per-event order stage of the forks of ``states0``: one call of
+    a backend's order entry (``order``, with the signature of
+    ``kernels.priority_order``) on the job table as it stands.  The
+    pool's rows, ``plan``'s static orders (ranked once over
+    ``ever_queued``) and each fork's row among them are made once, here;
+    the other forks re-sort every event."""
 
     def __init__(self, states0: SimState, pool: EnginePool, plan: HoistPlan,
-                 ever_queued: torch.Tensor, counter: str):
+                 ever_queued: torch.Tensor,
+                 order: Callable[..., torch.Tensor]):
         dev = ever_queued.device
         k, J = states0.jobs.state.shape
         self.family, self.theta = _po.pool_rows(pool, dev)
@@ -321,21 +253,20 @@ class KernelOrder:
             self.hoisted = torch.empty((0, J), dtype=torch.int32, device=dev)
             rows = np.full(k, -1)
         else:
-            self.hoisted = hoisted_orders(states0, pool, plan, ever_queued)
             hoist = np.asarray(plan, dtype=bool)
+            ti = upload(np.nonzero(hoist)[0], dev)
+            self.hoisted = static_priority_order(
+                map_state(lambda x: x[ti], states0), _index_pool(pool, ti),
+                ever_queued[ti])
             rows = np.where(hoist, np.cumsum(hoist) - 1, -1)
         self.hoist_row = upload(rows, dev, torch.int32)
-        self.counter = counter
+        self.order = order
 
     def __call__(self, st: SimState) -> torch.Tensor:
         jobs = st.jobs
-        order = _po.priority_order(jobs.state, jobs.submit_t,
-                                   jobs.est_runtime, jobs.nodes, st.now,
-                                   self.family, self.theta, self.hoisted,
-                                   self.hoist_row)
-        if order.is_cuda:
-            telemetry.SPANS.count(self.counter, 1)
-        return order
+        return self.order(jobs.state, jobs.submit_t, jobs.est_runtime,
+                          jobs.nodes, st.now, self.family, self.theta,
+                          self.hoisted, self.hoist_row)
 
 
 # ----------------------------------------------------------------------
@@ -344,25 +275,16 @@ class KernelOrder:
 
 @dataclasses.dataclass(frozen=True)
 class DrainEngine:
-    """Pluggable, policy-batched what-if engine on one device.
+    """Policy-batched what-if engine on one device.
 
     backend : "reference" | "cuda" | "auto" (cuda on a CUDA device,
-        reference on the CPU; the choice is logged).
+        reference on the CPU; the choice is logged): the row of
+        ``BACKENDS`` whose entries run the order stage and the pass.
     device : where the drains run (default "cuda"; raises if absent).
-    dynamic_bounds : truncate the pass's rank walks at the deepest live
-        queued rank each event (``des.pass_rank_limit``) — bit-exact.
-    hoist_static : hoist the argsort of time-invariant forks out of the
-        event loop — bit-exact.
-    elide_empty : count a replay iteration's pass only where some live
-        fork has a queued job (the reference skips the others; here
-        they run, masked, which gives the same bits) — bit-exact.
     """
 
     backend: str = "auto"
     device: DeviceLike = "cuda"
-    dynamic_bounds: bool = True
-    hoist_static: bool = True
-    elide_empty: bool = True
 
     def __post_init__(self) -> None:
         dev = resolve_device(self.device)
@@ -372,26 +294,31 @@ class DrainEngine:
             logger.info("DrainEngine backend='auto' resolved to %r "
                         "(device %s)", resolved, dev)
             object.__setattr__(self, "backend", resolved)
-        if self.backend not in PASS_BACKENDS:
+        if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown pass backend {self.backend!r}; "
-                f"registered: {sorted(PASS_BACKENDS)}")
+                f"known: {sorted(BACKENDS)}")
+        object.__setattr__(self, "_entries", BACKENDS[self.backend])
 
-    def pass_fn(self) -> PassFn:
-        return PASS_BACKENDS[self.backend](self)
+    def pass_fn(self) -> BatchedPassFn:
+        """The backend's pass entry on a batched ``SimState``."""
+        run = self._entries.pass_
+
+        def pass_fn(states: SimState, order: torch.Tensor, limit):
+            jobs = states.jobs
+            return run(order, jobs.state, jobs.nodes, jobs.est_runtime,
+                       jobs.end_t, states.free_nodes, states.now, limit)[0]
+        return pass_fn
 
     def plan(self, pool: EnginePool) -> HoistPlan:
-        return hoist_plan(pool, enabled=self.hoist_static)
+        return hoist_plan(pool)
 
     def order_fn(self, states0: SimState, pool: EnginePool, plan: HoistPlan,
-                 ever_queued: torch.Tensor, counter: str
-                 ) -> Callable[[SimState], torch.Tensor]:
-        """The per-event order stage of this backend over the forks of
-        ``states0``: the order kernel on ``cuda`` (its launches counted
-        as ``counter``), else the plain stage."""
-        if self.backend == "cuda":
-            return KernelOrder(states0, pool, plan, ever_queued, counter)
-        return make_order_fn(states0, pool, plan, ever_queued)
+                 ever_queued: torch.Tensor) -> OrderStage:
+        """The per-event order stage over the forks of ``states0``, run
+        by the backend's order entry."""
+        return OrderStage(states0, pool, plan, ever_queued,
+                          self._entries.order)
 
     # -- drains --------------------------------------------------------
     def drain(self, state: SimState, pool: EnginePool) -> DrainResult:
@@ -418,7 +345,7 @@ class DrainEngine:
         deliberately uncompacted (full rank bound, fresh sort)."""
         pool = _pool_to(as_pool(policy), self.device)
         states = broadcast_state(state.to(self.device), 1)
-        order = batched_priority_order(states, pool)
+        order = priority_order(states, pool)
         return self.pass_fn()(states, order, None)[0]
 
     # -- trace replay (DESIGN.md §6) -----------------------------------
@@ -585,10 +512,8 @@ def _drain_impl(engine: DrainEngine, states: SimState, pool: EnginePool,
     # mid-drain no new jobs appear: only slots queued at entry can ever
     # be queued — the tightest hoist domain
     order_fn = engine.order_fn(states, pool, plan,
-                               ever_queued=states.jobs.state == QUEUED,
-                               counter="drain.order_kernel")
-    return simulate_to_drain_batched(states, order_fn, engine.pass_fn(),
-                                     dynamic_bounds=engine.dynamic_bounds)
+                               ever_queued=states.jobs.state == QUEUED)
+    return simulate_to_drain_batched(states, order_fn, engine.pass_fn())
 
 
 def _decide_impl(engine: DrainEngine, state: SimState, pool: EnginePool,
@@ -871,16 +796,13 @@ def replay_run(engine: DrainEngine, states: SimState,
                arrival_t: torch.Tensor, true_rt: torch.Tensor,
                pool: EnginePool, plan: HoistPlan = None) -> ReplayResult:
     """The batched replay of prepared inputs on their device, under
-    ``engine``'s pass backend and knobs."""
+    ``engine``'s backend."""
     # every slot with a finite arrival will be queued at some point (plus
     # any slot already queued at entry): the hoist domain
     ever_queued = torch.isfinite(arrival_t) | (states.jobs.state == QUEUED)
-    order_fn = engine.order_fn(states, pool, plan, ever_queued=ever_queued,
-                               counter="replay.order_kernel")
-    return simulate_replay_batched(
-        states, arrival_t, true_rt, order_fn, engine.pass_fn(),
-        dynamic_bounds=engine.dynamic_bounds,
-        elide_empty=engine.elide_empty)
+    order_fn = engine.order_fn(states, pool, plan, ever_queued=ever_queued)
+    return simulate_replay_batched(states, arrival_t, true_rt, order_fn,
+                                   engine.pass_fn())
 
 
 def _replay_impl(engine: DrainEngine, states: SimState,

@@ -157,8 +157,8 @@ def _shards(mesh: FleetMesh, axis: str):
 
 def _mesh_engine(mesh: FleetMesh, engine: Optional[DrainEngine]
                  ) -> DrainEngine:
-    """The engine whose backend and knobs every shard runs: the caller's,
-    or the default one on the mesh's first device."""
+    """The engine whose backend every shard runs: the caller's, or the
+    default one on the mesh's first device."""
     return engine if engine is not None else DrainEngine(device=mesh.home)
 
 

@@ -3,12 +3,12 @@ kernel for Hopper: each fork's priority keys, its stable sort and the
 queued-first compaction of hoisted forks, in one launch, in fork order.
 
 It replaces no Pallas kernel (the JAX package leaves the stage to XLA):
-it stands in for the ~80 PyTorch ops a step of ``core/engine.py``'s
-plain stage (``make_order_fn``), whose output it gives element for
+it stands in for the ~80 PyTorch ops a step of its plain version,
+``priority_order_plain``, the ``reference`` backend's order entry
+(``core/engine.py``'s ``BACKENDS``), whose output it gives element for
 element.  The CUDA source is ``repro_torch/csrc/priority_order.cu``,
 built with ``nvcc`` at first use and called through ctypes
-(``kernels/build.py``); the note at its top says what bounds it.  The
-plain PyTorch version is ``priority_order_plain``.
+(``kernels/build.py``); the note at its top says what bounds it.
 
 ``priority_order`` takes tensors on one device:
 
@@ -120,8 +120,7 @@ def priority_order_plain(state: torch.Tensor, submit: torch.Tensor,
                          hoist_row: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel (inputs as ``priority_order``): the
     re-sorted forks' keys and stable argsort, the hoisted forks'
-    compaction, each over its forks as the engine's plain stage runs
-    them, written in fork order."""
+    compaction, each over its own forks, written in fork order."""
     k, J = state.shape
     queued = state == QUEUED
     out = torch.empty((k, J), dtype=torch.int32, device=state.device)

@@ -72,7 +72,7 @@ from repro_torch.cluster.workload import (JobSpec, bursty_trace,
                                           paper_synthetic_trace,
                                           poisson_trace, split_scenarios)
 from repro_torch.configs.schedtwin import ReplayGridConfig
-from repro_torch.core.engine import PASS_BACKENDS, DrainEngine
+from repro_torch.core.engine import BACKENDS, DrainEngine
 from repro_torch.core.events import EventBus
 from repro_torch.core.fan import FanSpec, pruned_fan_grid
 from repro_torch.core.objective import Objective, validate_objective
@@ -152,10 +152,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume the co-simulation from the latest "
                          "snapshot in --snapshot-dir (same flags as the "
                          "original run), or --train from --train-dir")
-    ap.add_argument("--backend", choices=sorted(PASS_BACKENDS) + ["auto"],
+    ap.add_argument("--backend", choices=sorted(BACKENDS) + ["auto"],
                     default="auto",
-                    help="scheduling-pass backend (auto: the CUDA kernel "
-                         "on cuda, the plain pass on cpu)")
+                    help="engine backend: its order stage and pass "
+                         "(auto: the CUDA kernels on cuda, their plain "
+                         "versions on cpu)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the what-if engine runs")
     ap.add_argument("--seed", type=int, default=0)

@@ -123,20 +123,19 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   (K2's two entries, K3, K4) refuse CUDA inputs that require a gradient
   under grad mode, before any launch, and run them under
   ``torch.no_grad()``.
-* The order kernel (``kernels.priority_order``, ``engine.KernelOrder``)
-  against the plain order stage (``engine.make_order_fn``): at the
-  Polaris drain's shape (8,192 forks, J = 1,024) and a farm-shaped batch
-  (49,152 forks interleaved s·P + p, J = 256), every test pool (the
-  Polaris sweep, the paper's, integer ids, random θ) at J from 8 to
-  ``MAX_J`` under hoist plans None, partial and all-static, and forks
-  planted with -0.0/+0.0 ties, ±inf and NaN keys (with
-  ``torch.argsort(stable=True)``'s order of such a row pinned): bitwise,
-  one ``LAUNCHES`` a call.  Its keys equal ``priority_key_spec`` (and
-  integer ids the id stack's) bitwise (C3).  On ``cuda`` the drain and
-  the replay launch it once a step and count it
-  (``drain.order_kernel``, ``replay.order_kernel``), on ``reference``
-  never; a Polaris-size ``decide_fan`` gives the reference backend's
-  winner, costs and ``run_mask``; J > ``MAX_J`` raises.
+* The order kernel (``kernels.priority_order``) against its plain
+  version (``priority_order_plain``), each run as ``engine.OrderStage``
+  on CUDA tensors: at the Polaris drain's shape (8,192 forks, J = 1,024)
+  and a farm-shaped batch (49,152 forks interleaved s·P + p, J = 256),
+  every test pool (the Polaris sweep, the paper's, integer ids, random
+  θ) at J from 8 to ``MAX_J`` under hoist plans None, partial and
+  all-static, and forks planted with -0.0/+0.0 ties, ±inf and NaN keys
+  (with ``torch.argsort(stable=True)``'s order of such a row pinned):
+  bitwise, one ``LAUNCHES`` a call.  Its keys equal
+  ``priority_key_spec`` (and integer ids the id stack's) bitwise (C3).
+  On ``cuda`` the drain and the replay launch it once a step, as K1, on
+  ``reference`` never; a Polaris-size ``decide_fan`` gives the reference
+  backend's winner, costs and ``run_mask``; J > ``MAX_J`` raises.
 """
 import warnings
 
@@ -146,8 +145,7 @@ import torch
 
 from repro_torch.cluster import workload
 from repro_torch.core import des
-from repro_torch.core.engine import (DrainEngine, make_order_fn,
-                                     replay_inputs)
+from repro_torch.core.engine import DrainEngine, OrderStage, replay_inputs
 from repro_torch.core.fan import FanSpec
 from repro_torch.core.policies import parse_pool
 from repro_torch.core.whatif import (sharded_fan_grid, sharded_replay_grid,
@@ -729,8 +727,8 @@ def test_replay_block_does_not_synchronise():
     states, arrival_t, true_rt, pool_t, _ = replay_inputs(scen, pool,
                                                           "cuda")
     plan = engine.plan(pool)
-    order_fn = engine.order_fn(states, pool_t, plan * 2, torch.isfinite(
-        arrival_t), "replay.order_kernel")
+    order_fn = engine.order_fn(states, pool_t, plan * 2,
+                               torch.isfinite(arrival_t))
     step = des.make_replay_step(arrival_t, true_rt, order_fn,
                                 engine.pass_fn())
     c = des.replay_init(states)
@@ -1407,27 +1405,22 @@ DRAS = "extended,wfp:a=1..5x5:tau=600..7200x5"
 
 
 def _assert_order_stage(pool, states, plans):
-    """The kernel's order (one launch a call) against the plain stage's
-    on every state, under every hoist plan: bitwise."""
-    from repro_torch.core import telemetry
-    from repro_torch.core.engine import KernelOrder
+    """The kernel's order (one launch a call) against its plain
+    version's on every state, under every hoist plan: bitwise."""
     from repro_torch.core.state import QUEUED as Q
     from repro_torch.kernels import priority_order as po
     s0 = states[0]
     ever = s0.jobs.state == Q
     for plan in plans:
-        want_fn = make_order_fn(s0, pool, plan, ever)
-        got_fn = KernelOrder(s0, pool, plan, ever, "order.kernel")
-        with telemetry.SPANS.span("order"):
-            for st in states:
-                launches = po.LAUNCHES
-                got = got_fn(st)
-                assert po.LAUNCHES == launches + 1
-                want = want_fn(st)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), plan
-        assert telemetry.SPANS.roots[-1].counts()["order.kernel"] == len(
-            states)
+        want_fn = OrderStage(s0, pool, plan, ever, po.priority_order_plain)
+        got_fn = OrderStage(s0, pool, plan, ever, po.priority_order)
+        for st in states:
+            launches = po.LAUNCHES
+            got = got_fn(st)
+            assert po.LAUNCHES == launches + 1
+            want = want_fn(st)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
 
 
 @pytest.mark.cuda
@@ -1541,8 +1534,8 @@ def test_order_kernel_keys_match_torch():
 @pytest.mark.cuda
 def test_order_kernel_counts_one_launch_a_step():
     """On ``cuda`` the drain and the replay launch the order kernel once
-    a step, as K1, and count it (``drain.order_kernel``,
-    ``replay.order_kernel``); on ``reference`` neither launches."""
+    a step (``drain.steps``, ``replay.steps``), as K1; on ``reference``
+    neither launches."""
     from repro_torch.core import telemetry
     from repro_torch.kernels import priority_order as po
     _card()
@@ -1556,14 +1549,14 @@ def test_order_kernel_counts_one_launch_a_step():
         n = telemetry.SPANS.roots[-1].counts()
         k1, order = pe.LAUNCHES - before[0], po.LAUNCHES - before[1]
         want = n["drain.steps"] if backend == "cuda" else 0
-        assert k1 == order == n.get("drain.order_kernel", 0) == want
+        assert k1 == order == want
         before = (pe.LAUNCHES, po.LAUNCHES)
         engine.replay_grid(scen, pool)
         torch.cuda.synchronize()
         n = telemetry.SPANS.roots[-1].counts()
         k1, order = pe.LAUNCHES - before[0], po.LAUNCHES - before[1]
         want = n["replay.steps"] if backend == "cuda" else 0
-        assert k1 == order == n.get("replay.order_kernel", 0) == want
+        assert k1 == order == want
 
 
 def chip_smoke_snapshot():
@@ -1608,12 +1601,11 @@ def test_polaris_fan_decision_cuda_matches_reference():
 
 @pytest.mark.cuda
 def test_order_kernel_refuses_tables_past_max_j():
-    from repro_torch.core.engine import KernelOrder
     from repro_torch.kernels import priority_order as po
     _card()
     pool = parse_pool("paper").spec.to("cuda")
     st = _order_states(3, po.MAX_J + 1, 0.5, seed=0)
-    stage = KernelOrder(st, pool, None, st.jobs.state == 1, "order.kernel")
+    stage = OrderStage(st, pool, None, st.jobs.state == 1, po.priority_order)
     launches = po.LAUNCHES
     with pytest.raises(ValueError, match="MAX_J"):
         stage(st)

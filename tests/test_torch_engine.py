@@ -1,11 +1,12 @@
 """The port's ``DrainEngine.decide`` against the JAX engine's.
 
 Corpus: ``tests/test_engine.py``'s 60 snapshots (J=48), extended pool,
-``reference`` backend on both sides.  The port runs under the four
-combinations of ``dynamic_bounds`` x ``hoist_static`` (goal ``score``)
-and under the goals ``avg_wait``, ``lex:avg_wait,makespan`` and
-``min:avg_wait@util>=0.85``; the JAX engine runs its default knobs (its
-own ``tests/test_hotloop.py`` holds all knob combinations bit-identical).
+``reference`` backend on both sides.  The port's one path (the rank
+limit taken, time-invariant forks hoisted) runs against the JAX engine
+under the four combinations of its ``dynamic_bounds`` x ``hoist_static``
+knobs (goal ``score``) and, at the JAX engine's default knobs, under the
+goals ``avg_wait``, ``lex:avg_wait,makespan`` and
+``min:avg_wait@util>=0.85``.
 
 Tolerances:
   * ``policy_index``, ``run_mask`` and ``deadlocked``: identical;
@@ -67,10 +68,11 @@ def _corpus():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_decisions(goal, pool_grammar="extended"):
-    """The JAX engine's decisions on the corpus (default knobs: its own
-    tests/test_hotloop.py holds every knob combination bit-identical)."""
-    jeng, jpool = JEngine("reference"), jparse(pool_grammar).spec
+def _jax_decisions(goal, pool_grammar="extended", knobs=()):
+    """The JAX engine's decisions on the corpus, under its ``knobs``
+    (pairs of name and value; none: its defaults)."""
+    jeng = JEngine("reference", **dict(knobs))
+    jpool = jparse(pool_grammar).spec
     return tuple(jeng.decide(js, jpool, goal) for js, _ in _corpus())
 
 
@@ -115,21 +117,25 @@ def _compare(jd, td, ctx, flips, elementwise=True):
                                       err_msg=ctx)
 
 
-def _run(goal, **knobs):
-    teng = TEngine("reference", device="cpu", **knobs)
+def _run(goal, knobs=()):
+    teng = TEngine("reference", device="cpu")
     tpool = tparse("extended").spec
     elementwise = parse_objective(goal).elementwise
     flips = []
-    for i, ((_, ts), jd) in enumerate(zip(_corpus(), _jax_decisions(goal))):
+    for i, ((_, ts), jd) in enumerate(zip(_corpus(),
+                                          _jax_decisions(goal, knobs=knobs))):
         _compare(jd, teng.decide(ts, tpool, goal),
-                 f"snapshot {i} goal {goal} {knobs}", flips, elementwise)
+                 f"snapshot {i} goal {goal} JAX {knobs}", flips, elementwise)
     assert not flips, f"near-tie winner flips: {flips}"
 
 
 @pytest.mark.parametrize("dynamic_bounds", [True, False])
 @pytest.mark.parametrize("hoist_static", [True, False])
 def test_decide_all_knob_combinations(dynamic_bounds, hoist_static):
-    _run("score", dynamic_bounds=dynamic_bounds, hoist_static=hoist_static)
+    """The port's one path gives the JAX engine's decisions under every
+    combination of its two bit-exact drain knobs."""
+    _run("score", (("dynamic_bounds", dynamic_bounds),
+                   ("hoist_static", hoist_static)))
 
 
 @pytest.mark.parametrize("goal", ["avg_wait", "lex:avg_wait,makespan",
@@ -187,6 +193,31 @@ def test_engine_knobs_and_backend_registry():
     b = TEngine("reference", device="cpu").decide(ts, pool)
     assert int(a.policy_index) == int(b.policy_index)
     np.testing.assert_array_equal(a.costs.numpy(), b.costs.numpy())
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_backend_entries_are_looked_up_at_each_call(backend, monkeypatch):
+    """A function put in place of a backend's entry on its module after
+    the engine was made (as a trace window around K1's entry is) sees
+    every call: one order call and one pass a drain step."""
+    from repro_torch.core import backfill, telemetry
+    from repro_torch.kernels import policy_eval as pe
+    from repro_torch.kernels import priority_order as po
+    eng = TEngine(backend, device="cpu")
+    entries = {"reference": ((po, "priority_order_plain"),
+                             (backfill, "schedule_pass_batched")),
+               "cuda": ((po, "priority_order"),
+                        (pe, "policy_eval_pass_batched"))}[backend]
+    calls = []
+    for mod, name in entries:
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, real=real, name=name: (
+            calls.append(name), real(*a))[1])
+    _, ts = _corpus()[11]
+    eng.drain(ts, tparse("extended").spec)
+    steps = telemetry.SPANS.roots[-1].counts()["drain.steps"]
+    assert steps > 0
+    assert [calls.count(name) for _, name in entries] == [steps, steps]
 
 
 def test_scoring_helpers_and_invariants_match():

@@ -129,8 +129,9 @@ def assert_matches_jax(t, j, ctx=""):
 @pytest.mark.parametrize("backend", ["reference", "pallas"],
                          ids=["ref", "pallas"])
 def test_sharded_grid_matches_local_with_hoisting(scen5, backend):
-    assert REF.hoist_static
     pool = parse_pool(MIXED)
+    plan = REF.plan(pool.spec)          # static and time-varying forks
+    assert plan is not None and any(plan) and not all(plan)
     sharded = whatif.sharded_replay_grid(MESH[1], engine=REF)(scen5, pool)
     assert_port_identical(sharded, _port_grid(MIXED), "sharded vs local")
     assert_matches_jax(sharded, _jax_grid(MIXED, backend),

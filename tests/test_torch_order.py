@@ -1,31 +1,38 @@
-"""The order kernel's plain version (``kernels.priority_order``) against
-the engine's plain order stage (``engine.make_order_fn``), on the CPU.
+"""The engine's one plain order stage (``engine.OrderStage`` running the
+``reference`` backend's order entry, ``kernels.priority_order``'s plain
+version) against the order's definition, fork by fork, on the CPU.
 
-The plain version is the stage the kernel's wrapper takes for CPU
-tensors and what the kernel is held to on the card
-(``tests/test_torch_cuda.py``): one call, in fork order, for re-sorted
-and hoisted forks alike.  ``engine.KernelOrder`` (the ``cuda`` backend's
-stage) runs it here.  Every case compares the (k, J) orders element for
-element over pools (the paper's, the Polaris sweep, ``extended``, integer
-ids, ``expf:tau=600``, random θ with nonzero ``wait``/``xfactor``
-weights), J of 8, 150, 256 and 1,024, no slots / some / all queued,
-hoist plans None, partial and all-static, and rows planted with
--0.0/+0.0 ties, ±inf and NaN keys.  Integer-id pools lifted to their
-``static_spec`` rows give the id stack's keys; the drain and the replay
-count the steps whose order came from the kernel.
+The plain version is the stage of the ``reference`` backend, the branch
+the kernel's wrapper takes for CPU tensors and what the kernel is held
+to on the card (``tests/test_torch_cuda.py``): one call, in fork order,
+for re-sorted and hoisted forks alike.  The definition takes one fork at
+a time: a re-sorted fork's order is ``backfill.priority_order`` on the
+pool as given (integer ids through the id stack), a hoisted fork's its
+``static_priority_order`` compacted queued-first.  Every case compares
+the (k, J) orders element for element over pools (the paper's, the
+Polaris sweep, ``extended``, integer ids, ``expf:tau=600``, random θ
+with nonzero ``wait``/``xfactor`` weights), J of 8, 150, 256 and 1,024,
+no slots / some / all queued, hoist plans None, partial and all-static,
+and rows planted with -0.0/+0.0 ties, ±inf and NaN keys.  Integer-id
+pools lifted to their ``static_spec`` rows give the id stack's keys;
+the drain and the replay call the backend's order entry once a step.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import des, policies, telemetry
-from repro_torch.core.engine import (DrainEngine, KernelOrder,
-                                     make_order_fn, tile_pool)
+from repro_torch.core import engine as engine_mod
+from repro_torch.core import policies, telemetry
+from repro_torch.core.backfill import (compact_queued_first, priority_order,
+                                       static_priority_order)
+from repro_torch.core.engine import DrainEngine, tile_pool
 from repro_torch.core.policies import PolicySpec, parse_pool
 from repro_torch.core.state import QUEUED, JobTable, SimState, map_state
 from repro_torch.kernels import priority_order as po
 
 from torch_threads import one_thread  # noqa: F401
+
+REF = DrainEngine("reference", device="cpu")
 
 
 def _random_pool(seed: int) -> PolicySpec:
@@ -96,6 +103,33 @@ def _plan(pool, which: str, k: int):
     return tuple(i % 2 == 0 for i in range(k))
 
 
+def _fork(x, f):
+    return map_state(lambda leaf: leaf[f:f + 1], x) if isinstance(
+        x, SimState) else x[f:f + 1]
+
+
+def _fork_pool(pool, f):
+    if isinstance(pool, PolicySpec):
+        return PolicySpec(pool.family[f:f + 1], pool.theta[f:f + 1])
+    return pool[f:f + 1]
+
+
+def _defined_order(s0, st, pool, hoist, ever):
+    """The (k, J) order by definition, one fork at a time: a hoisted
+    fork's static order (ranked on ``s0`` over ``ever``) with its queued
+    slots first, a re-sorted fork's ``backfill.priority_order``."""
+    rows = []
+    for f in range(st.jobs.state.shape[0]):
+        one, p = _fork(st, f), _fork_pool(pool, f)
+        if hoist is not None and hoist[f]:
+            static = static_priority_order(_fork(s0, f), p, _fork(ever, f))
+            rows.append(compact_queued_first(static,
+                                             one.jobs.state == QUEUED))
+        else:
+            rows.append(priority_order(one, p))
+    return torch.cat(rows)
+
+
 @pytest.mark.parametrize("plan", ["none", "partial", "all"])
 @pytest.mark.parametrize("queued", ["none", "some", "all"])
 @pytest.mark.parametrize("J", [8, 150, 256, 1024])
@@ -106,17 +140,13 @@ def test_plain_version_matches_the_order_stage(pool_name, J, queued, plan):
     s0 = _states(k, J, "some", seed=J)
     ever = (s0.jobs.state == QUEUED) | (torch.arange(J) % 3 == 0)
     hoist = _plan(pool, plan, k)
-    want_fn = make_order_fn(s0, pool, hoist, ever)
-    got_fn = KernelOrder(s0, pool, hoist, ever, "order.kernel")
-    with telemetry.SPANS.span("order"):
-        for step in range(2):
-            st = _states(k, J, queued, seed=100 * J + step)
-            want = want_fn(st)
-            got = got_fn(st)
-            assert got.dtype == torch.int32 and got.shape == (k, J)
-            assert torch.equal(got, want), (pool_name, J, queued, plan, step)
-    # CPU tensors take the plain version: no launch is counted
-    assert "order.kernel" not in telemetry.SPANS.roots[-1].counts()
+    stage = REF.order_fn(s0, pool, hoist, ever)
+    for step in range(2):
+        st = _states(k, J, queued, seed=100 * J + step)
+        want = _defined_order(s0, st, pool, hoist, ever)
+        got = stage(st)
+        assert got.dtype == torch.int32 and got.shape == (k, J)
+        assert torch.equal(got, want), (pool_name, J, queued, plan, step)
 
 
 def _planted(J: int):
@@ -165,8 +195,8 @@ def test_plain_version_orders_planted_keys(J):
     assert keys[3].isnan().any() and (keys[3] == torch.inf).any()
     ever = st.jobs.state == QUEUED
     for hoist in (None, (False, True, False, True, False)):
-        want = make_order_fn(st, pool, hoist, ever)(st)
-        got = KernelOrder(st, pool, hoist, ever, "order.kernel")(st)
+        want = _defined_order(st, st, pool, hoist, ever)
+        got = REF.order_fn(st, pool, hoist, ever)(st)
         assert torch.equal(got, want)
 
 
@@ -188,51 +218,31 @@ def test_integer_ids_lifted_give_the_id_stack_keys():
     assert torch.equal(got, want)
 
 
-class _Counted:
-    """An order stage that counts each call as a launch, as
-    ``KernelOrder`` does on the card."""
-
-    def __init__(self, inner, counter):
-        self.inner, self.counter = inner, counter
-
-    def __call__(self, st):
-        telemetry.SPANS.count(self.counter, 1)
-        return self.inner(st)
-
-
 @pytest.mark.parametrize("backend", ["reference", "cuda"])
 def test_loops_count_the_kernel_steps(backend, monkeypatch):
-    """``drain.order_kernel`` and ``replay.order_kernel``: the order
-    kernel's launches, one a step, on the loop's root.  None here, where
-    neither backend launches (the ``cuda`` stage takes its plain version
-    on CPU tensors); every step where the engine's stage counts each
-    call, so the drain and the replay hand it their own counter."""
+    """The drain and the replay call the backend's order entry once a
+    step: as many calls as ``drain.steps`` and ``replay.steps`` (on the
+    CPU the ``cuda`` entry takes its plain version)."""
     from repro_torch.cluster import workload
+    calls = []
+    entries = engine_mod.BACKENDS[backend]
+
+    def order(*args):
+        calls.append(1)
+        return entries.order(*args)
+    monkeypatch.setitem(engine_mod.BACKENDS, backend,
+                        entries._replace(order=order))
     engine = DrainEngine(backend, device="cpu")
     pool = parse_pool("extended").spec
-    st = _states(7, 64, "some", seed=5)
-    snapshot = map_state(lambda x: x[0], st)
-    stage = engine.order_fn(st, pool, engine.plan(pool),
-                            st.jobs.state == QUEUED, "drain.order_kernel")
-    assert isinstance(stage, KernelOrder) == (backend == "cuda")
+    snapshot = map_state(lambda x: x[0], _states(7, 64, "some", seed=5))
     scen = workload.stack_scenarios(
         [workload.bursty_trace(12, 16, 4.0, (1, 12), (30.0, 400.0), seed=1)],
         16, max_jobs=16)
     spans = telemetry.SPANS
-    plain = DrainEngine.order_fn
-    for counted in (False, True):
-        if counted:
-            monkeypatch.setattr(
-                DrainEngine, "order_fn",
-                lambda self, *args, counter, **kw: _Counted(
-                    plain(self, *args, counter=counter, **kw), counter))
-        engine.drain(snapshot, pool)
-        n = spans.roots[-1].counts()
-        assert n["drain.steps"] > 0
-        assert n.get("drain.order_kernel", 0) == (n["drain.steps"]
-                                                  if counted else 0)
-        engine.replay_grid(scen, pool)
-        n = spans.roots[-1].counts()
-        assert n["replay.steps"] > 0
-        assert n.get("replay.order_kernel", 0) == (n["replay.steps"]
-                                                   if counted else 0)
+    engine.drain(snapshot, pool)
+    n = spans.roots[-1].counts()
+    assert n["drain.steps"] > 0 and len(calls) == n["drain.steps"]
+    calls.clear()
+    engine.replay_grid(scen, pool)
+    n = spans.roots[-1].counts()
+    assert n["replay.steps"] > 0 and len(calls) == n["replay.steps"]
