@@ -290,6 +290,14 @@ ORDER = dict(name="priority_order", route="cuda",
 #: The order kernel's launches by path, counted beside K1's: every
 #: ``cuda`` drain and replay launches both once a step (``k1_launches``).
 ORDER_LAUNCHES = {}
+STEP = dict(name="drain_step", route="cuda",
+            source="src/repro_torch/csrc/drain_step.cu", replaces=None)
+#: The step kernel's launches by path: every ``cuda`` drain launches it
+#: once an iteration, after K1, and no replay launches it.
+STEP_LAUNCHES = {}
+#: K1's launches inside batched drains since ``reset_launches``
+#: (``count_drain_passes``), which the step kernel's must equal.
+DRAIN_K1 = [0]
 K1S = dict(name="policy_eval_pass", route="cuda",
            source="src/repro_torch/csrc/policy_eval.cu",
            replaces="src/repro/kernels/policy_eval.py:176")
@@ -302,25 +310,54 @@ K4 = dict(name="flash_attention", route="cuda",
           replaces="src/repro/kernels/flash_attention.py:37")
 
 
+def count_drain_passes():
+    """Count K1's launches inside every batched drain in ``DRAIN_K1``.
+    The engine calls ``simulate_to_drain_batched`` by its name on its own
+    module (``_drain_impl``), so one wrapper there sees every drain."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels import policy_eval as pe
+    run = engine_mod.simulate_to_drain_batched
+
+    def counted(*args):
+        before = pe.LAUNCHES
+        try:
+            return run(*args)
+        finally:
+            DRAIN_K1[0] += pe.LAUNCHES - before
+    engine_mod.simulate_to_drain_batched = counted
+
+
 def reset_launches(pe):
-    """Zero K1's launch count and the order kernel's."""
+    """Zero K1's launch count, the order kernel's, the step kernel's and
+    K1's inside drains."""
+    from repro_torch.kernels import drain_step as ds
     from repro_torch.kernels import priority_order as po
-    pe.LAUNCHES = po.LAUNCHES = 0
+    pe.LAUNCHES = po.LAUNCHES = ds.LAUNCHES = DRAIN_K1[0] = 0
 
 
 def k1_launches(pe, path=None, order=True):
     """K1's launches since ``reset_launches``.  The order kernel's must
     equal them (every ``cuda`` drain and replay launches both once a
     step), or be 0 where ``order`` is false (the scalar drain keeps the
-    plain order); they are added to ``ORDER_LAUNCHES[path]``."""
+    plain order); they are added to ``ORDER_LAUNCHES[path]``.  The step
+    kernel's must equal K1's inside batched drains (``DRAIN_K1``): all
+    of K1's on a drain path, none on a replay path; they are added to
+    ``STEP_LAUNCHES[path]``."""
+    from repro_torch.kernels import drain_step as ds
     from repro_torch.kernels import priority_order as po
     want = pe.LAUNCHES if order else 0
     if po.LAUNCHES != want:
         raise SystemExit(f"[order] {path or 'a checked path'}: "
                          f"{po.LAUNCHES} order-kernel launches, {want} "
                          f"expected ({pe.LAUNCHES} K1 launches)")
+    if ds.LAUNCHES != DRAIN_K1[0]:
+        raise SystemExit(f"[step] {path or 'a checked path'}: "
+                         f"{ds.LAUNCHES} step-kernel launches, "
+                         f"{DRAIN_K1[0]} expected (K1's launches inside "
+                         f"drains, of {pe.LAUNCHES})")
     if path is not None:
         ORDER_LAUNCHES[path] = ORDER_LAUNCHES.get(path, 0) + po.LAUNCHES
+        STEP_LAUNCHES[path] = STEP_LAUNCHES.get(path, 0) + ds.LAUNCHES
     return pe.LAUNCHES
 
 
@@ -451,6 +488,7 @@ def capture_drain_passes(torch, engine, snapshot, every=20):
     from repro_torch.core.engine import OrderStage
     from repro_torch.core.policies import parse_pool
     from repro_torch.core.state import QUEUED
+    from repro_torch.kernels import drain_step as ds
     from repro_torch.kernels import policy_eval as pe
     from repro_torch.kernels import priority_order as po
     pool = parse_pool(DRAS_POOL).spec.to(engine.device)
@@ -469,7 +507,8 @@ def capture_drain_passes(torch, engine, snapshot, every=20):
         step[0] += 1
         return pe.policy_eval_pass_batched(*args)[0]
 
-    des.simulate_to_drain_batched(states, order_fn, pass_fn)
+    des.simulate_to_drain_batched(states, order_fn, pass_fn,
+                                  ds.drain_step_plain)
     return captured, step[0]
 
 
@@ -574,22 +613,79 @@ def kernel_vs_plain(torch, engine, snapshot):
                 drain_mean_ms=drain_ms), drain_inputs
 
 
+def step_args(args):
+    """A copy of a drain step's arguments (state, started, active, dead,
+    iters, limit)."""
+    from repro_torch.core.state import map_state
+    return (map_state(lambda x: x.clone(), args[0]),
+            *(a.clone() for a in args[1:]))
+
+
+def step_tensors(args):
+    """The tensors a drain step writes, floats as their bits."""
+    import torch
+    st = args[0]
+    out = (st.jobs.start_t, st.jobs.end_t, st.jobs.state, st.free_nodes,
+           st.now) + tuple(args[1:])
+    return [t.view(torch.int32) if t.is_floating_point() else t
+            for t in out]
+
+
+def step_bytes(args):
+    """The least bytes of one step launch on ``args``: an active fork's
+    started byte and state word a slot, a started slot's estimate and
+    node count read and its start, end and state written, a running
+    slot's end and node count; an idle fork's started row written; 32 B
+    of a fork's scalars."""
+    from repro_torch.core.state import RUNNING
+    st, started, active = args[:3]
+    k, J = started.shape
+    live = active[:, None]
+    n_live = int(active.sum())
+    go = int((started & live).sum())
+    run = int(((st.jobs.state == RUNNING) & live).sum())
+    return n_live * J * 5 + (k - n_live) * J + go * 20 + run * 8 + k * 32
+
+
+def time_step_ms(torch, fn, args, n):
+    """The median device time of ``fn`` over ``n`` calls, each on a fresh
+    copy of ``args`` (made before the call's first event): a step writes
+    its arguments."""
+    work = step_args(args)
+    marks = []
+    for _ in range(n):
+        for dst, src in zip(step_tensors(work), step_tensors(args)):
+            dst.copy_(src)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(*work)
+        t1.record()
+        marks.append((t0, t1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
 def order_vs_plain(torch, snapshot, every=25):
-    """The order kernel against its plain version on the card: every
-    ``every``-th step of a real Polaris fan drain (the k=32 sweep x 256
-    futures = 8,192 forks, J = 1,024, noise and failures as the Polaris
-    cell's) and a farm-shaped batch (the paper's pool x 16,384 random
-    scenarios, s·P + p, J = 256), bitwise; then both timed (CUDA events)
-    on the drain's first, middle and last captured steps and on the farm
-    batch, beside the bound (16 B a slot of a re-sorted fork, 8 B of a
-    hoisted one, 4 B written)."""
+    """The order kernel and the step kernel against their plain versions
+    on the card: every ``every``-th step of a real Polaris fan drain (the
+    k=32 sweep x 256 futures = 8,192 forks, J = 1,024, noise and failures
+    as the Polaris cell's) and, for the order, a farm-shaped batch (the
+    paper's pool x 16,384 random scenarios, s·P + p, J = 256), bitwise;
+    then each timed (CUDA events) on the drain's first, middle and last
+    captured steps (the order also on the farm batch), beside its bound:
+    the order's 16 B a slot of a re-sorted fork, 8 B of a hoisted one and
+    4 B written; the step's least bytes (``step_bytes``).  Returns the
+    order's row and the step's."""
     from repro_torch.core.engine import DrainEngine, OrderStage, tile_pool
     from repro_torch.core.fan import FanSpec
     from repro_torch.core.policies import parse_pool
-    from repro_torch.core.state import QUEUED
+    from repro_torch.core.state import QUEUED, map_state
+    from repro_torch.kernels import drain_step as ds
     from repro_torch.kernels import priority_order as po
 
     captured, step = [], [0]
+    step_captured, step_n = [], [0]
 
     class Checked(DrainEngine):
         def order_fn(self, states0, pool, plan, ever_queued):
@@ -603,22 +699,67 @@ def order_vs_plain(torch, snapshot, every=25):
                     if not torch.equal(got, plain(st)):
                         raise SystemExit(f"[order] MISMATCH at drain step "
                                          f"{step[0]}")
-                    captured.append((kernel, plain, st))
+                    captured.append((kernel, plain,
+                                     map_state(lambda x: x.clone(), st)))
                 step[0] += 1
                 return got
             return fn
 
+        def step_fn(self):
+            kernel = super().step_fn()
+
+            def fn(*args):
+                n = step_n[0]
+                step_n[0] += 1
+                if n % every:
+                    return kernel(*args)
+                before = step_args(args)
+                plain = step_args(args)
+                kernel(*args)
+                ds.drain_step_plain(*plain)
+                if not all(torch.equal(a, b) for a, b in
+                           zip(step_tensors(args), step_tensors(plain))):
+                    raise SystemExit(f"[step] MISMATCH at drain step {n}")
+                step_captured.append(before)
+            return fn
+
     fan = FanSpec(n=256, runtime_noise=0.3, failure_prob=0.1,
                   failure_frac=0.1, seed=3)
-    launches = po.LAUNCHES
+    launches = (po.LAUNCHES, ds.LAUNCHES)
     Checked(backend="cuda", device="cuda").decide_fan(
         snapshot, parse_pool(DRAS_POOL).spec, fan, "cvar:0.9:score")
     torch.cuda.synchronize()
-    if po.LAUNCHES - launches != step[0]:
+    if po.LAUNCHES - launches[0] != step[0]:
         raise SystemExit("[order] not one launch a drain step")
+    if ds.LAUNCHES - launches[1] != step[0] or step_n[0] != step[0]:
+        raise SystemExit("[step] not one launch a drain step")
     print(f"[order] Polaris fan drain: {step[0]} steps at k=8,192 "
           f"J={POLARIS_SLOTS}; kernel bitwise the plain stage on "
           f"{len(captured)} of them (every {every}th)")
+    print(f"[step] the same drain: the step kernel bitwise its plain "
+          f"version on {len(step_captured)} of its {step_n[0]} steps "
+          f"(every {every}th; every tensor it writes)")
+    step_rows = {}
+    for name, args in (("first", step_captured[0]),
+                       ("middle", step_captured[len(step_captured) // 2]),
+                       ("last", step_captured[-1])):
+        ms = time_step_ms(torch, ds.drain_step, args, 50)
+        plain_ms = time_step_ms(torch, ds.drain_step_plain, args, 10)
+        ms2 = time_step_ms(torch, ds.drain_step, args, 50)
+        b_ms, _ = bound(step_bytes(args), 0, OP_RATE)
+        live = int(args[2].sum())
+        step_rows[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
+                               bound_ms=b_ms, active_forks=live)
+        print(f"[step] {name} ({live} active forks of 8,192): kernel "
+              f"{ms * 1e3:.1f} / {ms2 * 1e3:.1f} us per launch, plain "
+              f"version {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+              f"(bytes; kernel at {100 * b_ms / min(ms, ms2):.1f}% of it)")
+    del step_captured[:]
+    first = step_rows["first"]
+    step_row = dict(max_abs_err=0.0, ms=first["ms"],
+                    plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                    bound_by="bytes", by_step=step_rows,
+                    checked_drain_steps=step_n[0])
 
     def bytes_of(kernel, st):
         k, J = st.jobs.state.shape
@@ -653,7 +794,7 @@ def order_vs_plain(torch, snapshot, every=25):
     first = rows["first"]
     return dict(max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
                 bound_ms=first["bound_ms"], bound_by="bytes", by_step=rows,
-                checked_drain_steps=step[0])
+                checked_drain_steps=step[0]), step_row
 
 
 def synthetic_order_state(torch, k, J, seed):
@@ -3079,13 +3220,16 @@ def fleet_cli_phase(torch, pe):
 
 
 EXAMPLE_RUN = ("import time\n"
+               "import chip_smoke\n"
                "from repro_torch.examples import {name} as example\n"
+               "from repro_torch.kernels import drain_step as ds\n"
                "from repro_torch.kernels import policy_eval as pe\n"
                "from repro_torch.kernels import priority_order as po\n"
+               "chip_smoke.count_drain_passes()\n"
                "t0 = time.perf_counter()\n"
                "example.main(['--device', 'cuda'])\n"
-               "print('EXAMPLE', pe.LAUNCHES, po.LAUNCHES,\n"
-               "      time.perf_counter() - t0)\n")
+               "print('EXAMPLE', pe.LAUNCHES, po.LAUNCHES, ds.LAUNCHES,\n"
+               "      chip_smoke.DRAIN_K1[0], time.perf_counter() - t0)\n")
 
 
 def examples_phase(card):
@@ -3106,19 +3250,25 @@ def examples_phase(card):
             if proc.returncode != 0:
                 raise SystemExit(f"[examples] {name} exited "
                                  f"{proc.returncode}: {err[-3000:]}")
-            tag, n, n_order, wall = out.strip().splitlines()[-1].split()
+            tag, n, n_order, n_step, n_drain, wall = \
+                out.strip().splitlines()[-1].split()
             if tag != "EXAMPLE" or int(n) == 0:
                 raise SystemExit(f"[examples] {name} never launched K1")
             if int(n_order) != int(n):
                 raise SystemExit(f"[examples] {name}: {n_order} order-kernel"
                                  f" launches, {n} K1 launches")
+            if int(n_step) != int(n_drain):
+                raise SystemExit(f"[examples] {name}: {n_step} step-kernel "
+                                 f"launches, {n_drain} K1 launches inside "
+                                 f"drains")
             launches[f"example_{name}"] = int(n)
             ORDER_LAUNCHES[f"example_{name}"] = int(n_order)
+            STEP_LAUNCHES[f"example_{name}"] = int(n_step)
             last = out.strip().splitlines()[-2]
             print(f"[examples] python -m repro_torch.examples.{name}: exit "
                   f"0 after {float(wall):.1f} s on {card}, {n} K1 and order "
-                  f"kernel launches each; "
-                  f"last line: {last[:100]}")
+                  f"kernel launches each, {n_step} step-kernel launches "
+                  f"(K1's inside drains); last line: {last[:100]}")
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -4492,6 +4642,7 @@ def main() -> int:
     from repro_torch.kernels import wkv6 as wk
 
     t_start = time.perf_counter()
+    count_drain_passes()
     print(f"[card] {card_line()}")
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -4499,7 +4650,7 @@ def main() -> int:
     engine = DrainEngine(backend="cuda", device="cuda")
     snapshot = polaris_snapshot(engine)
     k1, drain_inputs = kernel_vs_plain(torch, engine, snapshot)
-    order = order_vs_plain(torch, snapshot)
+    order, step = order_vs_plain(torch, snapshot)
     check_cosim(pe)
     launches, mirrors, _, _ = polaris_cycles(torch, engine, pe,
                                              path="polaris_cycles")
@@ -4533,6 +4684,10 @@ def main() -> int:
         k1_phases(torch, drain_inputs)
     if "--k2-phases" in sys.argv:
         k2_phases(torch)
+    replay_only = sorted(p for p, n in STEP_LAUNCHES.items() if n == 0)
+    print(f"[step] step-kernel launches equal K1's inside drains on all "
+          f"{len(STEP_LAUNCHES)} checked paths: "
+          f"{sum(STEP_LAUNCHES.values())} in all; 0 on {replay_only}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     k4_err = max([k4["max_abs_err"]]
                  + [r["max_abs_err"] for r in k4_local.values()]
@@ -4561,6 +4716,8 @@ def main() -> int:
              training_pass=learn["training_pass"]),
         dict(ORDER, launches=sum(ORDER_LAUNCHES.values()), **order,
              launches_by_path=dict(ORDER_LAUNCHES)),
+        dict(STEP, launches=sum(STEP_LAUNCHES.values()), **step,
+             launches_by_path=dict(STEP_LAUNCHES)),
         dict(K1S, launches=k1s_launches, **k1s),
         dict(K2, launches=rgemma[rg] + sum(dry_paths["rglru"].values()),
              **k2, launches_by_path={"recurrentgemma-2b": rgemma[rg],

@@ -4,8 +4,9 @@
   event to event.  The port's own reference for the batched drain.
 * ``simulate_to_drain_batched`` — the hot path: all k forks carried as
   a leading axis and advanced in lock-step with per-fork done/dead
-  masks.  Keys, argsort and the scheduling pass run once per event for
-  the whole batch, each through an entry of the engine's backend
+  masks.  Keys, argsort, the scheduling pass and the step (starts,
+  advance, the next rank limit) run once per event for the whole batch,
+  each through an entry of the engine's backend
   (``repro_torch.core.engine``).  Future arrivals are not simulated
   (§3.2): the horizon holds only predicted job ends.  The loop bound is
   ``max_jobs + 1``.
@@ -19,9 +20,11 @@
 
 The reference loops on the device (``lax.while_loop``).  Here both loops
 are Python loops.  The drain's condition costs one device-to-host read
-per iteration (``bool(active.any())``), recorded as a ``drain.read``
-span.  The replay runs blocks of ``REPLAY_BLOCK`` iterations and reads
-its condition once per block: its body carries the condition as a device
+per iteration (the rank limit, which is above 0 while a fork is active),
+recorded as a ``drain.read`` span; everything the drain does after the
+pass is one step entry of the engine's backend (``kernels.drain_step``).
+The replay runs blocks of ``REPLAY_BLOCK`` iterations and reads its
+condition once per block: its body carries the condition as a device
 flag and changes nothing once the flag is down, so no iteration inside a
 block waits for the host.
 """
@@ -140,45 +143,64 @@ def apply_starts(st: SimState, started: torch.Tensor) -> SimState:
     )
 
 
+# A drain step: (the loop's own batched SimState, started (k, J) bool,
+# active (k,) bool, dead (k,) bool, iters (k,) i32, limit — an i32 tensor
+# of one element) -> None.  It masks ``started`` with ``active``, applies
+# the starts, advances every active fork to its next predicted end, counts
+# the iteration and leaves the next ``active`` and rank limit, all in
+# place (``kernels.drain_step``).
+DrainStepFn = Callable[[SimState, torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor, torch.Tensor], None]
+
+
 def simulate_to_drain_batched(states: SimState,
                               order_fn: Callable[[SimState], torch.Tensor],
-                              pass_fn: BatchedPassFn) -> DrainResult:
+                              pass_fn: BatchedPassFn,
+                              step_fn: DrainStepFn) -> DrainResult:
     """Drain all k forks of ``states`` (leading axis on every leaf) in
     lock-step.  ``order_fn`` maps the batched state to the (k, J)
     priority order; ``pass_fn`` runs the greedy/backfill pass up to the
-    rank limit (``pass_rank_limit``).  A fork that drains or deadlocks
-    freezes while the rest keep stepping, so the result is the stack of
-    k scalar drains.
+    rank limit (``pass_rank_limit``); ``step_fn`` applies its starts and
+    advances the forks, in place on the loop's own copy of the fields it
+    writes (made once, at entry: ``states`` is never written).  A fork
+    that drains or deadlocks freezes while the rest keep stepping, so the
+    result is the stack of k scalar drains.
 
-    It records a ``drain`` span (``core.telemetry``; a root of its own
-    outside a decision) holding one ``drain.read`` span around each
-    iteration's read of the loop condition (the host's wait for the
-    card), and counts ``drain.steps``, the iterations dispatched."""
+    The loop runs while the rank limit is above 0, which is while some
+    fork is active: the limit is the largest queued count of an active
+    fork.  It records a ``drain`` span (``core.telemetry``; a root of its
+    own outside a decision) holding one ``drain.read`` span around each
+    iteration's read of the limit (the host's wait for the card), and
+    counts ``drain.steps``, the iterations dispatched."""
     k, J = states.jobs.state.shape
     dev = states.now.device
     max_iters = J + 1
-    st = states
+
+    def own(x):
+        return x.clone(memory_format=torch.contiguous_format)
+    jobs = states.jobs
+    st = states._replace(
+        jobs=jobs._replace(start_t=own(jobs.start_t), end_t=own(jobs.end_t),
+                           state=own(jobs.state)),
+        free_nodes=own(states.free_nodes), now=own(states.now))
     first = torch.zeros((k, J), dtype=torch.bool, device=dev)
     dead = torch.zeros((k,), dtype=torch.bool, device=dev)
     iters = torch.zeros((k,), dtype=torch.int32, device=dev)
+    active = ~dead & (st.jobs.state == QUEUED).any(1)
+    limit = pass_rank_limit(st, active)
     it = 0
     spans = telemetry.SPANS
     with spans.span("drain"):
         while it < max_iters:
-            active = ~dead & (st.jobs.state == QUEUED).any(1)
-            flag = active.any()
             with spans.span("drain.read"):
-                more = bool(flag)           # the loop's one host read
+                more = int(limit) > 0       # the loop's one host read
             if not more:
                 break
             order = order_fn(st)
-            limit = pass_rank_limit(st, active)
-            started = pass_fn(st, order, limit) & active[:, None]
-            st = apply_starts(st, started)
+            started = pass_fn(st, order, limit)
+            step_fn(st, started, active, dead, iters, limit)
             if it == 0:
                 first = started
-            st, dead = _advance(st, active, dead)
-            iters = iters + active.to(torch.int32)
             it += 1
         spans.count("drain.steps", it)
     return DrainResult(state=st, first_started=first, iters=iters,

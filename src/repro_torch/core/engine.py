@@ -9,17 +9,21 @@ simulations, one per candidate policy, and drains them all in lock-step
      stable argsort, or, for a time-invariant fork, its order hoisted
      out of the loop and compacted queued-first;
   2. the sequential greedy + EASY-backfill pass on the batch axis;
-  3. starts are applied and each fork advances to its next predicted end.
+  3. the step: starts are applied, each fork advances to its next
+     predicted end, and the next rank limit is left on the device.
 
 A backend (``BACKENDS``) names the entry of each stage; the order entries
-share ``kernels.priority_order``'s signature and the pass entries
-``backfill.schedule_pass_batched``'s:
+share ``kernels.priority_order``'s signature, the pass entries
+``backfill.schedule_pass_batched``'s and the step entries
+``kernels.drain_step``'s (the drain's alone: the replay keeps its own
+plain step):
 
-  * ``reference`` — the plain versions, ``priority_order_plain`` and
-    ``schedule_pass_batched``;
-  * ``cuda``      — the order kernel, ``kernels.priority_order``, and K1,
-    ``kernels.policy_eval.policy_eval_pass_batched`` (on CPU tensors
-    both run their plain versions);
+  * ``reference`` — the plain versions, ``priority_order_plain``,
+    ``schedule_pass_batched`` and ``drain_step_plain``;
+  * ``cuda``      — the order kernel, ``kernels.priority_order``, K1,
+    ``kernels.policy_eval.policy_eval_pass_batched``, and the step
+    kernel, ``kernels.drain_step.drain_step`` (on CPU tensors all three
+    run their plain versions);
   * ``auto``      — ``cuda`` on a CUDA device, ``reference`` on the CPU.
 
 The engine owns a device (default ``cuda``): ``decide``/``drain`` copy
@@ -36,8 +40,9 @@ key), ``decide_fan`` (f = φ·k + p, the ``fan.FanSpec`` perturbations),
 on the device from the base scenarios) and the races over them
 (``core/race.py``).  Every fork of them runs the same backend, so on
 ``cuda`` each step is one order launch and one K1 launch at k = F·P or
-S·F·P.  The fleet entry points (``core/whatif.py``'s ``sharded_*``)
-split these grids into fixed-shape blocks and shards over a
+S·F·P, and each drain iteration one step launch besides.  The fleet
+entry points (``core/whatif.py``'s ``sharded_*``) split these grids
+into fixed-shape blocks and shards over a
 ``launch.mesh.FleetMesh`` and run each piece through ``replay_run``;
 ``shard_local_plan`` gives a shard its hoist plan.
 """
@@ -55,7 +60,7 @@ from repro_torch.core import backfill as _bf
 from repro_torch.core import prng, scoring, telemetry
 from repro_torch.core.backfill import priority_order, static_priority_order
 from repro_torch.core.des import (BatchedPassFn, DrainMetrics, DrainResult,
-                                  ReplayResult, broadcast_state,
+                                  DrainStepFn, ReplayResult, broadcast_state,
                                   simulate_replay_batched,
                                   simulate_to_drain_batched, state_metrics)
 from repro_torch.core.fan import (FanSpec, _member_draws, failure_downs,
@@ -68,6 +73,7 @@ from repro_torch.core.policies import PolicySpec, time_invariant_mask
 from repro_torch.core.state import (QUEUED, TIME_NONE, JobTable, SimState,
                                     map_state)
 from repro_torch.device import DeviceLike, resolve_device, upload
+from repro_torch.kernels import drain_step as _ds
 from repro_torch.kernels import policy_eval as _pe
 from repro_torch.kernels import priority_order as _po
 
@@ -171,15 +177,17 @@ class FanOutcome(NamedTuple):
 
 
 # ----------------------------------------------------------------------
-# Backends: each names its order entry and its pass entry.
+# Backends: each names its order entry, its pass entry and its step entry.
 # ----------------------------------------------------------------------
 
 class Backend(NamedTuple):
-    """A backend's two entries: ``order`` with the order kernel's
+    """A backend's three entries: ``order`` with the order kernel's
     signature (``kernels.priority_order``), ``pass_`` with the plain
-    pass's (``backfill.schedule_pass_batched``)."""
+    pass's (``backfill.schedule_pass_batched``), ``step`` with the drain
+    step's (``kernels.drain_step``)."""
     order: Callable[..., torch.Tensor]
     pass_: Callable[..., Tuple]
+    step: DrainStepFn
 
 
 #: Each entry is looked up on its module at every call, so that a caller
@@ -187,9 +195,11 @@ class Backend(NamedTuple):
 #: trace window and ``chip_smoke.py``'s spies wrap K1's entry).
 BACKENDS: Dict[str, Backend] = {
     "reference": Backend(lambda *a: _po.priority_order_plain(*a),
-                         lambda *a: _bf.schedule_pass_batched(*a)),
+                         lambda *a: _bf.schedule_pass_batched(*a),
+                         lambda *a: _ds.drain_step_plain(*a)),
     "cuda": Backend(lambda *a: _po.priority_order(*a),
-                    lambda *a: _pe.policy_eval_pass_batched(*a)),
+                    lambda *a: _pe.policy_eval_pass_batched(*a),
+                    lambda *a: _ds.drain_step(*a)),
 }
 
 
@@ -279,7 +289,8 @@ class DrainEngine:
 
     backend : "reference" | "cuda" | "auto" (cuda on a CUDA device,
         reference on the CPU; the choice is logged): the row of
-        ``BACKENDS`` whose entries run the order stage and the pass.
+        ``BACKENDS`` whose entries run the order stage, the pass and
+        the drain's step.
     device : where the drains run (default "cuda"; raises if absent).
     """
 
@@ -309,6 +320,10 @@ class DrainEngine:
             return run(order, jobs.state, jobs.nodes, jobs.est_runtime,
                        jobs.end_t, states.free_nodes, states.now, limit)[0]
         return pass_fn
+
+    def step_fn(self) -> DrainStepFn:
+        """The backend's drain step entry."""
+        return self._entries.step
 
     def plan(self, pool: EnginePool) -> HoistPlan:
         return hoist_plan(pool)
@@ -513,7 +528,8 @@ def _drain_impl(engine: DrainEngine, states: SimState, pool: EnginePool,
     # be queued — the tightest hoist domain
     order_fn = engine.order_fn(states, pool, plan,
                                ever_queued=states.jobs.state == QUEUED)
-    return simulate_to_drain_batched(states, order_fn, engine.pass_fn())
+    return simulate_to_drain_batched(states, order_fn, engine.pass_fn(),
+                                     engine.step_fn())
 
 
 def _decide_impl(engine: DrainEngine, state: SimState, pool: EnginePool,

@@ -36,6 +36,7 @@ SOURCES: Dict[str, Path] = {
     "wkv6": _PKG / "csrc" / "wkv6.cu",                    # K3
     "flash_attention": _PKG / "csrc" / "flash_attention.cu",  # K4
     "priority_order": _PKG / "csrc" / "priority_order.cu",   # the order stage
+    "drain_step": _PKG / "csrc" / "drain_step.cu",        # the drain's step
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -136,6 +136,18 @@ the JAX package, so that it runs on the GPU machine, which has no JAX:
   On ``cuda`` the drain and the replay launch it once a step, as K1, on
   ``reference`` never; a Polaris-size ``decide_fan`` gives the reference
   backend's winner, costs and ``run_mask``; J > ``MAX_J`` raises.
+* The step kernel (``kernels.drain_step``) against its plain version
+  (``drain_step_plain``) on copies of the same arguments, every tensor
+  either writes compared by its bits: random forks in every layout (a
+  warp a fork at J <= 256, 64 to 512 threads a fork above; J of 32 to
+  4,096, J not a multiple of 32, k = 1), the inputs of the first, middle
+  and last iterations of a Polaris fan drain (8,192 forks, J = 1,024),
+  and planted forks (ties at the next end, stale ends, deadlocks, dead
+  and drained forks, no running job, a NaN end).  A Polaris fan drain
+  on ``cuda`` gives ``reference``'s started sets, times, states,
+  ``iters``, deadlocks, winner, costs and ``run_mask``; the kernel
+  launches once a drain iteration, never in a replay, never on
+  ``reference``; J > ``MAX_J`` and wrong dtypes raise before a launch.
 """
 import warnings
 
@@ -1610,3 +1622,319 @@ def test_order_kernel_refuses_tables_past_max_j():
     with pytest.raises(ValueError, match="MAX_J"):
         stage(st)
     assert po.LAUNCHES == launches
+
+
+# ---- the step kernel (kernels.drain_step) --------------------------------
+def _step_inputs(k, J, seed, queued=0.3, running=0.3, device="cuda"):
+    """A drain step's arguments on the card: k forks of J slots, the
+    pass's starts among the queued slots (and on forks that are not
+    active, which the step must clear), running jobs whose ends lie on a
+    60 s grid (ties at the next end) and some before the clock (stale),
+    dead forks and drained ones; ``active`` as the loop keeps it."""
+    from repro_torch.core.state import QUEUED as Q
+    from repro_torch.core.state import JobTable, SimState
+    rng = np.random.default_rng(seed)
+    rest = 1.0 - queued - running
+    state = rng.choice(4, size=(k, J), p=[rest / 2, queued, running,
+                                          rest / 2]).astype(np.int32)
+    drained = rng.random(k) < 0.1
+    state[drained] = np.where(state[drained] == Q, 3, state[drained])
+    now = (rng.integers(10, 1000, size=k) * 60.0).astype(np.float32)
+    est = rng.choice([0.0, 0.5, 300.0, 3600.0, 86400.0],
+                     size=(k, J)).astype(np.float32)
+    end = (now[:, None] + rng.integers(-10, 240, size=(k, J)) * 60.0
+           ).astype(np.float32)
+    nodes = rng.integers(1, 496, size=(k, J)).astype(np.int32)
+    started = (state == Q) & (rng.random((k, J)) < 0.2)
+    dead = rng.random(k) < 0.1
+    active = ~dead & (state == Q).any(1)
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt,  # noqa: E731
+                                                 device=device)
+    i32 = torch.int32
+    jobs = JobTable(submit_t=t(end - 2 * est), nodes=t(nodes, i32),
+                    est_runtime=t(est), start_t=t(end - est),
+                    end_t=t(end), state=t(state, i32))
+    free = t(rng.integers(0, 560, size=k), i32)
+    st = SimState(jobs=jobs, free_nodes=free, total_nodes=free.clone(),
+                  now=t(now))
+    return (st, t(started, torch.bool), t(active, torch.bool),
+            t(dead, torch.bool), t(rng.integers(0, 99, size=k), i32),
+            t([int(rng.integers(0, J))], i32))
+
+
+def _planted_step(J, device="cuda"):
+    """One fork a planted case, padded to J slots with empty ones: three
+    ends tied at the next end, one of them a start's; ends before the
+    clock; a queued job larger than the cluster and nothing running (a
+    deadlock); a dead fork with a start to clear, and a drained one; no
+    running job, its queued jobs starting (one of 0 s, which ends at
+    once); a start whose end is NaN (dead); the last queued job starting
+    beside an end at +inf (the fork drains); a queued job that does not
+    fit the free nodes, nothing running (a deadlock)."""
+    from repro_torch.core.state import DONE, INVALID, QUEUED, RUNNING
+    from repro_torch.core.state import JobTable, SimState
+    inf, nan = float("inf"), float("nan")
+    # (state, nodes, est, end, started) per job; now, free, dead per fork
+    forks = [
+        ([(RUNNING, 4, 600.0, 1600.0, 0), (RUNNING, 8, 900.0, 1600.0, 0),
+          (RUNNING, 2, 100.0, 2000.0, 0), (QUEUED, 50, 60.0, -1.0, 0),
+          (QUEUED, 1, 600.0, -1.0, 1)], 1000.0, 10, False),
+        ([(RUNNING, 4, 600.0, 900.0, 0), (RUNNING, 3, 60.0, 400.0, 0),
+          (RUNNING, 5, 60.0, 1200.0, 0), (QUEUED, 40, 60.0, -1.0, 0)],
+         1000.0, 0, False),
+        ([(QUEUED, 600, 3600.0, -1.0, 0), (DONE, 4, 60.0, 50.0, 0)],
+         1000.0, 560, False),
+        ([(QUEUED, 600, 3600.0, -1.0, 1), (RUNNING, 4, 60.0, 2000.0, 0)],
+         1000.0, 556, True),
+        ([(DONE, 4, 60.0, 50.0, 0), (RUNNING, 4, 60.0, 2000.0, 0)],
+         1000.0, 556, False),
+        ([(QUEUED, 10, 0.0, -1.0, 1), (QUEUED, 20, 300.0, -1.0, 1),
+          (QUEUED, 600, 60.0, -1.0, 0)], 1000.0, 560, False),
+        ([(QUEUED, 10, nan, -1.0, 1), (QUEUED, 20, 300.0, -1.0, 0)],
+         1000.0, 560, False),
+        ([(QUEUED, 10, 300.0, -1.0, 1), (RUNNING, 5, 60.0, inf, 0)],
+         1000.0, 20, False),
+        ([(QUEUED, 10, 300.0, -1.0, 0), (INVALID, 0, 0.0, -1.0, 0)],
+         1000.0, 5, False),
+    ]
+    k = len(forks)
+    f32 = np.zeros((4, k, J), np.float32)          # est, end, start, submit
+    i32 = np.zeros((2, k, J), np.int32)            # state, nodes
+    started = np.zeros((k, J), bool)
+    now = np.zeros(k, np.float32)
+    free = np.zeros(k, np.int32)
+    dead = np.zeros(k, bool)
+    f32[1:] = -1.0
+    for f, (jobs, t_now, n_free, is_dead) in enumerate(forks):
+        for j, (code, n, e, end, go) in enumerate(jobs):
+            slot = (j * 97) % J if J > 97 else j   # spread over the row
+            i32[:, f, slot] = code, n
+            f32[:2, f, slot] = e, end
+            started[f, slot] = go
+        now[f], free[f], dead[f] = t_now, n_free, is_dead
+    active = ~dead & (i32[0] == QUEUED).any(1)
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt,  # noqa: E731
+                                                 device=device)
+    jobs = JobTable(submit_t=t(f32[3]), nodes=t(i32[1], torch.int32),
+                    est_runtime=t(f32[0]), start_t=t(f32[2]),
+                    end_t=t(f32[1]), state=t(i32[0], torch.int32))
+    st = SimState(jobs=jobs, free_nodes=t(free, torch.int32),
+                  total_nodes=t(np.full(k, 560), torch.int32), now=t(now))
+    return (st, t(started, torch.bool), t(active, torch.bool),
+            t(dead, torch.bool), t(np.zeros(k), torch.int32),
+            t([7], torch.int32))
+
+
+def _assert_step(args):
+    """The kernel (one launch) and its plain version on copies of
+    ``args``: every tensor either writes, bitwise (floats by their bits,
+    NaNs included)."""
+    from chip_smoke import step_args, step_tensors
+    from repro_torch.kernels import drain_step as ds
+    got, want = step_args(args), step_args(args)
+    launches = ds.LAUNCHES
+    ds.drain_step(*got)
+    assert ds.LAUNCHES == launches + 1
+    ds.drain_step_plain(*want)
+    torch.cuda.synchronize()
+    names = ("start_t", "end_t", "state", "free_nodes", "now", "started",
+             "active", "dead", "iters", "limit")
+    for name, a, b in zip(names, step_tensors(got), step_tensors(want)):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,J", [(96, 256), (64, 4096), (1, 1024), (1, 77),
+                                 (33, 300), (8, 1500), (500, 32)])
+def test_drain_step_matches_plain_version(k, J):
+    """Every layout (a warp a fork at J <= 256, a block a fork above, 4
+    and 16 slots a thread), J not a multiple of 32, a single fork: the
+    kernel writes the plain version's bits."""
+    _card()
+    for seed in range(3):
+        _assert_step(_step_inputs(k, J, seed=seed + J))
+        _assert_step(_step_inputs(k, J, seed=seed, queued=0.05,
+                                  running=0.6))
+
+
+def _assert_planted(J, args):
+    """The outcomes of ``_planted_step(J)``'s forks after one step."""
+    from repro_torch.core.state import DONE, RUNNING
+    st, started, active, dead, iters, limit = args
+    state = st.jobs.state.cpu()
+    slot = lambda j: (j * 97) % J if J > 97 else j        # noqa: E731
+    assert [int(state[0, slot(j)]) for j in range(5)] == [
+        DONE, DONE, RUNNING, 1, DONE]                      # three tied
+    assert float(st.now[0]) == 1600.0 and int(st.free_nodes[0]) == 22
+    assert [int(state[1, slot(j)]) for j in range(3)] == [
+        DONE, DONE, RUNNING]                               # stale ends
+    assert float(st.now[1]) == 1000.0 and int(st.free_nodes[1]) == 7
+    assert not bool(started[3].any())                      # dead: cleared
+    assert int(state[5, slot(0)]) == DONE                  # 0 s job
+    assert int(st.free_nodes[5]) == 540
+    assert dead.cpu().tolist() == [False, False, True, True, False, False,
+                                   True, False, True]
+    assert active.cpu().tolist() == [True, True, False, False, False,
+                                     True, False, False, False]
+    assert iters.cpu().tolist() == [1, 1, 1, 0, 0, 1, 1, 1, 1]
+    assert int(limit) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [16, 256, 1024, 4096])
+def test_drain_step_planted_forks(J):
+    """Ties at the next end, stale ends, a deadlock, dead and drained
+    forks, no running job, a NaN end, a fork drained by its last start:
+    bitwise the plain version, and the planted outcomes hold."""
+    _card()
+    _assert_planted(J, _assert_step(_planted_step(J)))
+
+
+@pytest.mark.cuda
+def test_drain_step_matches_plain_version_on_a_polaris_cycle(monkeypatch):
+    """The step's inputs at the first, middle and last iterations of a
+    real Polaris fan drain (the k=32 sweep x 256 futures = 8,192 forks,
+    J = 1,024, the cell's noise and failures): bitwise its plain
+    version."""
+    from chip_smoke import step_args
+    from repro_torch.kernels import drain_step as ds
+    _card()
+    snapshot = chip_smoke_snapshot()
+    pool = parse_pool(DRAS).spec
+    fan = FanSpec(n=256, runtime_noise=0.3, failure_prob=0.1,
+                  failure_frac=0.1, seed=3)
+    engine = DrainEngine("cuda", device="cuda")
+    real, seen, n = ds.drain_step, [], [0]
+
+    def counted(*args):
+        n[0] += 1
+        return real(*args)
+    monkeypatch.setattr(ds, "drain_step", counted)
+    engine.decide_fan(snapshot, pool, fan, "cvar:0.9:score")
+    total = n[0]
+    assert total > 100
+    picks, n[0] = {0, total // 2, total - 1}, 0
+
+    def capture(*args):
+        if n[0] in picks:
+            seen.append(step_args(args))
+        n[0] += 1
+        return real(*args)
+    monkeypatch.setattr(ds, "drain_step", capture)
+    engine.decide_fan(snapshot, pool, fan, "cvar:0.9:score")
+    monkeypatch.setattr(ds, "drain_step", real)
+    assert n[0] == total and len(seen) == 3
+    for args in seen:
+        _assert_step(args)
+
+
+@pytest.mark.cuda
+def test_polaris_fan_drain_cuda_matches_reference_bitwise(monkeypatch):
+    """A Polaris fan decision (the k=32 sweep x 16 futures, J = 1,024,
+    failures on half the members, up to a quarter of the nodes) on
+    ``cuda`` (the order kernel, K1 and the step kernel) and on
+    ``reference``: the drains' started sets, start and end times,
+    states, clocks, free nodes, ``iters``, deadlocks and passes, and the
+    decisions' winners, costs (by their bits) and ``run_mask``,
+    identical."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import sync
+    from repro_torch.core.events import Event, EventKind
+    _card()
+    drains = []
+    run = engine_mod.simulate_to_drain_batched
+
+    def recorded(*args):
+        drains.append(run(*args))
+        return drains[-1]
+    monkeypatch.setattr(engine_mod, "simulate_to_drain_batched", recorded)
+    snapshot = chip_smoke_snapshot()
+    jobs = snapshot.jobs
+    running = (jobs.state == 2).nonzero().flatten().tolist()
+    running.sort(key=lambda j: float(jobs.end_t[j]))
+    for j in running[:3]:
+        snapshot, _ = sync.apply_event(snapshot, Event(
+            EventKind.JOBOBIT, max(float(jobs.end_t[j]),
+                                   float(snapshot.now)), j))
+    pool = parse_pool(DRAS).spec
+    fan = FanSpec(n=16, runtime_noise=0.3, failure_prob=0.5,
+                  failure_frac=0.25, seed=11)
+    got = DrainEngine("cuda", device="cuda").decide_fan(
+        snapshot, pool, fan, "cvar:0.9:score")
+    want = DrainEngine("reference", device="cuda").decide_fan(
+        snapshot, pool, fan, "cvar:0.9:score")
+    torch.cuda.synchronize()
+    a, b = drains
+    assert bool(a.first_started.any()) and int(a.iters.max()) > 100
+    for x, y in ((a.first_started, b.first_started), (a.iters, b.iters),
+                 (a.deadlocked, b.deadlocked),
+                 (a.pass_invocations, b.pass_invocations),
+                 (a.state.free_nodes, b.state.free_nodes),
+                 (a.state.jobs.state, b.state.jobs.state)):
+        assert torch.equal(x, y)
+    for x, y in ((a.state.jobs.start_t, b.state.jobs.start_t),
+                 (a.state.jobs.end_t, b.state.jobs.end_t),
+                 (a.state.now, b.state.now)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert int(got.policy_index) == int(want.policy_index)
+    assert torch.equal(got.costs.view(torch.int32),
+                       want.costs.view(torch.int32))
+    assert torch.equal(got.run_mask, want.run_mask)
+    assert torch.equal(got.deadlocked, want.deadlocked)
+
+
+@pytest.mark.cuda
+def test_drain_step_counts_one_launch_an_iteration():
+    """On ``cuda`` a drain launches the step kernel once an iteration
+    (``drain.steps``, K1's launches), a replay grid never; on
+    ``reference`` neither launches it."""
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import drain_step as ds
+    _card()
+    scen, pool = _replay_grids()[1]
+    snapshot = chip_smoke_snapshot()
+    for backend in ("cuda", "reference"):
+        engine = DrainEngine(backend, device="cuda")
+        before = (pe.LAUNCHES, ds.LAUNCHES)
+        engine.decide(snapshot, pool)
+        torch.cuda.synchronize()
+        n = telemetry.SPANS.roots[-1].counts()
+        k1, step = pe.LAUNCHES - before[0], ds.LAUNCHES - before[1]
+        want = n["drain.steps"] if backend == "cuda" else 0
+        assert k1 == step == want
+        before = (pe.LAUNCHES, ds.LAUNCHES)
+        engine.replay_grid(scen, pool)
+        torch.cuda.synchronize()
+        n = telemetry.SPANS.roots[-1].counts()
+        assert n["replay.steps"] > 0
+        assert ds.LAUNCHES == before[1]
+        assert pe.LAUNCHES - before[0] == (
+            n["replay.steps"] if backend == "cuda" else 0)
+
+
+@pytest.mark.cuda
+def test_drain_step_refuses_bad_arguments():
+    """J > ``MAX_J`` and wrong dtypes raise before any launch."""
+    from repro_torch.kernels import drain_step as ds
+    _card()
+    args = _step_inputs(2, ds.MAX_J + 1, seed=0)
+    launches = ds.LAUNCHES
+    with pytest.raises(ValueError, match="MAX_J"):
+        ds.drain_step(*args)
+    st, started, active, dead, iters, limit = _step_inputs(4, 64, seed=1)
+    bad = [(st, started.to(torch.uint8), active, dead, iters, limit),
+           (st, started, active.int(), dead, iters, limit),
+           (st, started, active, dead, iters.long(), limit),
+           (st, started, active, dead, iters, limit.long()),
+           (st._replace(now=st.now.double()), started, active, dead, iters,
+            limit),
+           (st._replace(jobs=st.jobs._replace(end_t=st.jobs.end_t.half())),
+            started, active, dead, iters, limit)]
+    for args in bad:
+        with pytest.raises(TypeError, match="dtype"):
+            ds.drain_step(*args)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds.drain_step(st, started.t().contiguous().t(), active, dead, iters,
+                      limit)
+    assert ds.LAUNCHES == launches

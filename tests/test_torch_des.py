@@ -104,6 +104,47 @@ def test_batched_drain_equals_scalar_oracle_bitwise():
                 _eq(a.numpy(), b.numpy(), f"{i}/{p} metrics")
 
 
+@pytest.mark.parametrize("backend", ("reference", "cuda"))
+def test_batched_drain_leaves_its_input_untouched(backend):
+    """The drain steps in place on its own copy: every leaf of the
+    batched input reads bit for bit as before, and no field the result
+    holds shares storage with a field the step writes."""
+    eng = TEngine(backend, device="cpu")
+    pool = tparse(POOL).spec
+    for i in (3, 17, 42):
+        ts = state_from_numpy(state_to_numpy(_snapshots()[i]), device="cpu")
+        states = tdes.broadcast_state(ts, pool.family.shape[0])
+        before = map_state(lambda x: x.clone(), states)
+        res = tdes.simulate_to_drain_batched(
+            states, eng.order_fn(states, pool, eng.plan(pool),
+                                 states.jobs.state == QUEUED),
+            eng.pass_fn(), eng.step_fn())
+        assert int(res.iters.max()) > 0
+        for a, b in zip(before.jobs + before[1:], states.jobs + states[1:]):
+            assert a.dtype == b.dtype and torch.equal(
+                a.view(torch.int32) if a.is_floating_point() else a,
+                b.view(torch.int32) if b.is_floating_point() else b), i
+        out, inp = res.state, states
+        for name in ("start_t", "end_t", "state"):
+            assert (getattr(out.jobs, name).data_ptr()
+                    != getattr(inp.jobs, name).data_ptr()), name
+        assert out.free_nodes.data_ptr() != inp.free_nodes.data_ptr()
+        assert out.now.data_ptr() != inp.now.data_ptr()
+
+
+@pytest.mark.parametrize("J", (16, 1024))
+@pytest.mark.parametrize("entry", ("drain_step_plain", "drain_step"))
+def test_drain_step_planted_forks_on_the_cpu(J, entry):
+    """The card tests' planted forks (ties at the next end, stale ends,
+    deadlocks, dead and drained forks, a NaN end) through the plain step,
+    and through the kernel's entry, which takes it on CPU tensors."""
+    from repro_torch.kernels import drain_step as ds
+    from test_torch_cuda import _assert_planted, _planted_step
+    args = _planted_step(J, device="cpu")
+    getattr(ds, entry)(*args)
+    _assert_planted(J, args)
+
+
 def test_pass_rank_limit_apply_starts_and_helpers():
     js = make_cluster_state(max_jobs=MAX_JOBS, seed=3, n_queued=10,
                             n_running=3)

@@ -199,15 +199,18 @@ def test_engine_knobs_and_backend_registry():
 def test_backend_entries_are_looked_up_at_each_call(backend, monkeypatch):
     """A function put in place of a backend's entry on its module after
     the engine was made (as a trace window around K1's entry is) sees
-    every call: one order call and one pass a drain step."""
+    every call: one order call, one pass and one step a drain step."""
     from repro_torch.core import backfill, telemetry
+    from repro_torch.kernels import drain_step as ds
     from repro_torch.kernels import policy_eval as pe
     from repro_torch.kernels import priority_order as po
     eng = TEngine(backend, device="cpu")
     entries = {"reference": ((po, "priority_order_plain"),
-                             (backfill, "schedule_pass_batched")),
+                             (backfill, "schedule_pass_batched"),
+                             (ds, "drain_step_plain")),
                "cuda": ((po, "priority_order"),
-                        (pe, "policy_eval_pass_batched"))}[backend]
+                        (pe, "policy_eval_pass_batched"),
+                        (ds, "drain_step"))}[backend]
     calls = []
     for mod, name in entries:
         real = getattr(mod, name)
@@ -217,7 +220,7 @@ def test_backend_entries_are_looked_up_at_each_call(backend, monkeypatch):
     eng.drain(ts, tparse("extended").spec)
     steps = telemetry.SPANS.roots[-1].counts()["drain.steps"]
     assert steps > 0
-    assert [calls.count(name) for _, name in entries] == [steps, steps]
+    assert [calls.count(name) for _, name in entries] == [steps] * 3
 
 
 def test_scoring_helpers_and_invariants_match():
